@@ -1,0 +1,51 @@
+"""Model registry (counterpart of ``mm3d_tpu/models/registry.py``).
+
+Only ``fusion_cls`` is registered in this slice; the other configs of the
+JAX registry join as their modules are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+from mm3d_tpu_torch.models import fusion as fu
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    task: str  # classification | partseg | semseg | fusion_cls | fusion_semseg
+    builder: Callable[..., Any]
+    default_npoint: int
+    config_id: Optional[int] = None  # BASELINE.json configs 1..5
+
+
+_REGISTRY: Dict[str, ModelSpec] = {}
+
+
+def register(spec: ModelSpec) -> ModelSpec:
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def get_model(name: str, **overrides) -> ModelSpec:
+    """Look up a registered spec; ``overrides`` pre-bind builder kwargs and
+    win over call-site kwargs of the same name."""
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
+    spec = _REGISTRY[name]
+    if overrides:
+        builder = spec.builder
+        spec = dataclasses.replace(
+            spec, builder=lambda **kw: builder(**{**kw, **overrides}))
+    return spec
+
+
+def available() -> Dict[str, ModelSpec]:
+    return dict(_REGISTRY)
+
+
+register(ModelSpec("fusion_cls", "fusion_cls", fu.FusionCls,
+                   default_npoint=1024, config_id=4))

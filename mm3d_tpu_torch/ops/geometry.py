@@ -1,0 +1,123 @@
+"""Plain PyTorch geometry ops (counterpart of ``mm3d_tpu/ops/geometry.py``).
+
+These are the plain versions of the port's kernels: ``fps_torch`` of the FPS
+kernel and ``ball_query_torch`` of the ball-query kernel. They run on any
+device and are the semantic reference the kernels are held to, bit-exactly
+for the index outputs. Their rounding is spelled out: dot products over the
+three coordinates are summed left to right as separate multiplies and adds,
+so no FMA contraction and no TF32 matmul can move a boundary decision.
+
+Conventions as in the JAX package: points are channels-last ``[B, N, C]``,
+indices are int32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_c a[..., c] * b[..., c], accumulated left to right."""
+    acc = a[..., 0] * b[..., 0]
+    for c in range(1, a.shape[-1]):
+        acc = acc + a[..., c] * b[..., c]
+    return acc
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared L2 distance: src [B,N,C], dst [B,M,C] -> [B,N,M].
+
+    (|s|^2 - 2 s.d) + |d|^2, the formula and order of the JAX package."""
+    s2 = _dot_last(src, src)[:, :, None]
+    d2 = _dot_last(dst, dst)[:, None, :]
+    cross = _dot_last(src[:, :, None, :], dst[:, None, :, :])
+    return (s2 - 2.0 * cross) + d2
+
+
+def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched gather: points [B,N,C], idx [B,...] -> [B,...,C] (forward only)."""
+    B, N, C = points.shape
+    offs = (torch.arange(B, device=idx.device, dtype=idx.dtype) * N).reshape(
+        (B,) + (1,) * (idx.dim() - 1))
+    flat = points.reshape(B * N, C)
+    out = flat.index_select(0, (idx + offs).reshape(-1))
+    return out.reshape(*idx.shape, C)
+
+
+def _start_vector(start_idx, B: int, N: int, device) -> torch.Tensor:
+    """int or [B] start indices -> int32 [B] tensor on ``device``."""
+    if isinstance(start_idx, (int, np.integer)):
+        if not 0 <= int(start_idx) < N:
+            raise ValueError(f"FPS start index {start_idx} outside [0, {N})")
+        return torch.full((B,), int(start_idx), dtype=torch.int32,
+                          device=device)
+    start = torch.as_tensor(start_idx, device=device).to(torch.int32)
+    start = start.reshape(-1).expand(B).contiguous()
+    # the kernel indexes the cloud with these: reject what would read
+    # outside it
+    if not bool(((start >= 0) & (start < N)).all()):
+        raise ValueError(f"FPS start indices outside [0, {N})")
+    return start
+
+
+def fps_torch(xyz: torch.Tensor, npoint: int, start_idx=0) -> torch.Tensor:
+    """Farthest point sampling, xyz [B,N,3] f32 -> [B,npoint] int32.
+
+    Twin of ``mm3d_tpu.ops.geometry._fps_jax``: running min-distance from
+    1e10, d = (dx*dx + dy*dy) + dz*dz, first index on argmax ties."""
+    B, N, _ = xyz.shape
+    far = _start_vector(start_idx, B, N, xyz.device).long()
+    batch = torch.arange(B, device=xyz.device)
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    dist = torch.full((B, N), 1e10, dtype=xyz.dtype, device=xyz.device)
+    idxs = torch.zeros((B, npoint), dtype=torch.int32, device=xyz.device)
+    for i in range(npoint):
+        idxs[:, i] = far
+        c = xyz[batch, far]  # [B,3]
+        dx = x - c[:, 0:1]
+        dy = y - c[:, 1:2]
+        dz = z - c[:, 2:3]
+        d = (dx * dx + dy * dy) + dz * dz
+        dist = torch.minimum(dist, d)
+        far = torch.argmax(dist, dim=-1)  # first occurrence of the max
+    return idxs
+
+
+def ball_query_torch(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """Ball query -> [B,S,nsample] int32 (twin of ``_query_ball_jax``).
+
+    The first ``nsample`` point indices with d2 <= radius**2 (radius**2
+    rounded to f32), in ascending order; empty slots repeat the first hit;
+    a centroid with no hit gets all zeros; nsample > N pads the same way."""
+    N = xyz.shape[1]
+    r2 = float(np.float32(radius * radius))
+    sqr = square_distance(new_xyz, xyz)  # [B,S,N]
+    arange = torch.arange(N, dtype=torch.int32, device=xyz.device)
+    cand = torch.where(sqr > r2, torch.full_like(arange, N), arange)
+    k = min(nsample, N)
+    idx = torch.topk(cand, k, dim=-1, largest=False, sorted=True).values
+    if k < nsample:
+        pad = torch.full(idx.shape[:-1] + (nsample - k,), N,
+                         dtype=idx.dtype, device=idx.device)
+        idx = torch.cat([idx, pad], dim=-1)
+    out = torch.where(idx == N, idx[..., :1], idx)
+    return torch.where(out == N, torch.zeros_like(out), out)
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-all: new_xyz [B,1,3] zeros, new_points [B,1,N,3+D].
+
+    Concatenation promotes like ``jnp.concatenate`` (f32 xyz with bf16
+    features gives f32)."""
+    B = xyz.shape[0]
+    new_xyz = torch.zeros((B, 1, 3), dtype=xyz.dtype, device=xyz.device)
+    grouped = xyz[:, None]
+    if points is not None:
+        dt = torch.promote_types(xyz.dtype, points.dtype)
+        grouped = torch.cat([grouped.to(dt), points[:, None].to(dt)], dim=-1)
+    return new_xyz, grouped
