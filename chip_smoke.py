@@ -11,14 +11,25 @@ that goes wrong:
 1. prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels of mm3d_tpu_torch/csrc from source, printing the build seconds;
 2. holds each kernel against its plain PyTorch twin (``use_impl("torch")``)
-   on the card at the serving path's shapes: FPS and ball query bit-exact,
-   the fused SA tail within the stated tolerances, and times both;
+   on the card at the shapes of the serving and training paths: FPS and
+   ball query bit-exact, the fused SA tail and the gather backward within
+   the stated tolerances (the gather backward also bit-identical across two
+   launches), and times the kernel, its plain twin and, where one PyTorch
+   call computes the same function, that call;
 3. serves fusion_cls through ``make_predictor`` at full width (B=128 clouds
    of 1024 points, 64x64 images, 40 classes, random seeded weights) in bf16
    and fp32: 3 requests each with the launch counts reset just before, then
    checks shapes, finiteness, fp32 parity of the kernels path with the plain
    path, bf16-vs-fp32 agreement, and measures clouds/s;
-4. prints the ``{"kernels": [...]}`` line, then, last, the
+4. trains fusion_cls at full width (B=24 clouds, the trainer's default), in
+   fp32 with TF32 off and then in bf16 mixed precision: one step on the
+   kernel path against one on the plain path from the same state and batch
+   (loss, every gradient, BN statistics), the launches of one step, of a BN
+   refresh and of an eval forward, ten steps on one batch (the loss must
+   fall), one epoch of ``Trainer.fit`` on synthetic data (the main path: its
+   launch counts are reset just before and read just after), and the median
+   step time, clouds/s and peak memory;
+5. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package. The details also go to
@@ -35,6 +46,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, NPOINT, IMAGE_HW, NUM_CLASS = 128, 1024, (64, 64), 40
+TRAIN_BATCH = 24  # TrainConfig's default batch
+TRAIN_SIZE, TEST_SIZE = 240, 48  # one epoch of 10 steps, 2 eval batches
 # H100 SXM published peaks (NVIDIA H100 data sheet):
 # device memory rate, dense bf16 tensor-core rate, f32 CUDA-core rate
 PEAK_BYTES_S = 3.35e12
@@ -45,8 +58,22 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # through the next layer; held to the bound tests/test_fused_sa.py holds the
 # bf16 Pallas kernel to, max|d| / (|ref| + 1) < 0.05
 BF16_REL_TOL = 0.05
-# fp32: the bound tests/test_fused_sa.py holds the f32 Pallas kernel to
+# fp32: the bound tests/test_fused_sa.py holds the f32 Pallas kernel to;
+# also the gather backward's (tests/test_gather_bwd.py), whose f32 sums run
+# in another order than the plain twin's index_add_ (there relative to the
+# sum of the terms' sizes, see kernel_checks)
 F32_RTOL = F32_ATOL = 1e-5
+# train step, kernel path vs plain path: the two differ only in the order of
+# the gather backward's f32 sums, which the backward carries on; each
+# gradient within GRAD_REL of its largest element (+ GRAD_ABS). In bf16 a
+# sum that differs in its last f32 bits can round to a neighbouring bf16
+# value (2^-8 relative) and carry that through the bf16 backward of the
+# layers below, so bf16 gets BF16_GRAD_REL: 2.5 bf16 ulps of the largest
+# element. A gradient that is zero in exact arithmetic (a bias ahead of a
+# train-mode BN, which subtracts the batch mean) is rounding residue on both
+# paths: one whose largest element on both is below RESIDUE of the model's
+# largest gradient element is held, like the residue itself, to that scale.
+GRAD_REL, GRAD_ABS, BF16_GRAD_REL, RESIDUE = 1e-4, 1e-7, 1e-2, 1e-4
 
 
 class SmokeError(RuntimeError):
@@ -255,6 +282,76 @@ def kernel_checks(torch, ops, geometry, dev):
                 + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
                 flops))
             record("fused_sa", f"{label} {dtname}", entry)
+
+    # --- gather backward: the train path's SA1 and SA2 shapes at B=24 with
+    # the ball query's own indices, a bf16 g, and random indices with an
+    # unaligned n=100, C=24
+    TB = TRAIN_BATCH
+    with ops.use_impl("torch"):
+        idx1 = ops.query_ball_point(0.2, 32, xyz1[:TB], c1[:TB])
+        idx2 = ops.query_ball_point(0.4, 64, c1[:TB], c2[:TB])
+    g = np.random.RandomState(2)
+    ridx = torch.from_numpy(g.randint(0, 100, (2, 30, 4)).astype(np.int32))
+    for label, idx, n, C, dt, timed in (
+            ("SA1 g[24,512,32,64] n=1024 f32", idx1, NPOINT, 64,
+             torch.float32, True),
+            ("SA2 g[24,128,64,128] n=512 f32", idx2, 512, 128,
+             torch.float32, True),
+            ("SA1 g[24,512,32,64] n=1024 bf16", idx1, NPOINT, 64,
+             torch.bfloat16, False),
+            ("random idx n=100 C=24 f32", ridx.to(dev), 100, 24,
+             torch.float32, False)):
+        gg = torch.from_numpy(g.randn(*idx.shape, C).astype(np.float32)).to(
+            dev).to(dt)
+        got = ops.gather_backward(gg, idx, n)
+        again = ops.gather_backward(gg, idx, n)
+        with ops.use_impl("torch"):
+            want = ops.gather_backward(gg, idx, n)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == dt,
+              f"gather backward {label}: shape/dtype")
+        check(torch.equal(got, again),
+              f"gather backward {label}: two launches differ")
+        gf, wf = got.float(), want.float()
+        err = (gf - wf).abs()
+        if dt == torch.bfloat16:
+            # one bf16 ulp of the larger of the two values
+            mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+            ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+            check(bool((err <= ulp).all()),
+                  f"gather backward {label}: more than one bf16 ulp")
+        else:
+            # two f32 sums of the same terms in different orders (the plain
+            # twin's atomics take a new order on every call) differ by a
+            # rounding error that scales with the sum of the terms' sizes,
+            # not with the size of the sum: the tolerance is relative to
+            # sum |g| per output element
+            with ops.use_impl("torch"):
+                size = ops.gather_backward(gg.abs(), idx, n)
+            worst = float((err - F32_RTOL * size).max())
+            check(worst <= F32_ATOL,
+                  f"gather backward {label}: |d| - rtol sum|g| max {worst}")
+        entry = {"dtype": str(dt).split(".")[-1], "bit_identical": True,
+                 "max_abs_err": float(err.max())}
+        if timed:
+            B, C_ = gg.shape[0], gg.shape[-1]
+            F = idx[0].numel()
+            entry["ms"] = cuda_ms(torch, lambda: ops.gather_backward(
+                gg, idx, n), 20)
+            with ops.use_impl("torch"):
+                entry["plain_ms"] = cuda_ms(
+                    torch, lambda: ops.gather_backward(gg, idx, n), 20)
+            # the library yardstick: one index_add_ into zeros, with the
+            # flat int64 row index built beforehand
+            offs = (torch.arange(B, device=dev) * n).reshape(B, 1, 1)
+            flat_idx = (idx.long() + offs).reshape(-1)
+            flat_g = gg.reshape(-1, C_)
+            entry["library_ms"] = cuda_ms(torch, lambda: torch.zeros(
+                B * n, C_, device=dev).index_add_(0, flat_idx, flat_g), 20)
+            es = gg.element_size()
+            entry.update(bound(B * F * C_ * es + B * F * 4 + B * n * C_ * es,
+                               {"float32": B * F * C_}))
+        record("gather_backward", label, entry)
     return rows
 
 
@@ -295,11 +392,13 @@ def serve(torch, ops, cuda_kernels, dev):
             check(bool(torch.isfinite(lp).all()), f"{dtname}: non-finite")
     n = len(reqs)
     check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
-                                 "query_ball_point": 0, "fused_sa": 2 * n},
+                                 "query_ball_point": 0, "fused_sa": 2 * n,
+                                 "gather_backward": 0},
           f"bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused SA "
           "per forward")
     check(counts["float32"] == {"farthest_point_sample": 2 * n,
-                                "query_ball_point": 2 * n, "fused_sa": 0},
+                                "query_ball_point": 2 * n, "fused_sa": 0,
+                                "gather_backward": 0},
           f"fp32 launches {counts['float32']}: want 2 FPS + 2 ball query "
           "per forward")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
@@ -334,8 +433,183 @@ def serve(torch, ops, cuda_kernels, dev):
             "throughput": rates}
 
 
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _stats(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()}
+
+
+def train(torch, ops, cuda_kernels, dev):
+    """fusion_cls training at full width, fp32 (TF32 off) then bf16."""
+    import copy
+
+    from mm3d_tpu_torch.data.pipeline import DataPipeline
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import TrainConfig, Trainer, steps
+    from mm3d_tpu_torch.training.loop import build_datasets
+    from mm3d_tpu_torch.training.state import make_optimizer
+
+    spec = get_model("fusion_cls")
+    names = ("random_point_dropout", "random_scale_point_cloud",
+             "shift_point_cloud")
+    cfg0 = TrainConfig(train_size=TRAIN_SIZE, test_size=TEST_SIZE, epochs=1,
+                       num_class=NUM_CLASS, batch_size=TRAIN_BATCH,
+                       npoint=NPOINT)
+    train_ds, _ = build_datasets(cfg0)
+    batch = next(iter(DataPipeline(train_ds, TRAIN_BATCH, shuffle=False,
+                                   to_device=dev).epoch(0)))
+    out = {"launches": {k.__name__: 0 for k in cuda_kernels.KERNELS}}
+
+    def make(dtype, seed=0):
+        model = init_params(spec.builder(num_class=NUM_CLASS, dtype=dtype),
+                            seed).to(dev)
+        return model
+
+    def stepper(model, gen_seed=7, fixed=False):
+        """The train step; ``fixed``: no augmentation and no dropout, so
+        every step sees the very same batch."""
+        opt = make_optimizer(model.parameters(), "adam", 1e-4)
+        gen = torch.Generator(dev).manual_seed(gen_seed)
+        return steps.make_train_step(
+            model, spec.loss, opt, "fusion_cls",
+            augment_names=() if fixed else names, generator=gen,
+            deterministic=True if fixed else None)
+
+    for dtname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        res = {}
+        # (a) kernel path vs plain path, one step from the same state and
+        # batch (same generator seed: same augmentation and dropout draws);
+        # cuDNN deterministic, so the convolutions agree too
+        torch.backends.cudnn.deterministic = True
+        kmodel = make(dtype)
+        pmodel = copy.deepcopy(kmodel)
+        kstep, pstep = stepper(kmodel), stepper(pmodel)
+        cuda_kernels.reset_launches()
+        mk = kstep(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        per_step = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        with ops.use_impl("torch"):
+            mp = pstep(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        lk, lp = float(mk["loss"]), float(mp["loss"])
+        loss_rel = abs(lk - lp) / abs(lp)
+        check(loss_rel <= 1e-5, f"train {dtname}: loss kernel {lk} vs plain "
+                                f"{lp}")
+        rel = BF16_GRAD_REL if dtype is not None else GRAD_REL
+        gk, gp = _grads(kmodel), _grads(pmodel)
+        top = max(float(g.float().abs().max()) for g in gp.values())
+        worst_grad, residue = 0.0, []
+        for n in gk:
+            d = float((gk[n].float() - gp[n].float()).abs().max())
+            scale = float(gp[n].float().abs().max())
+            if max(scale, float(gk[n].float().abs().max())) <= RESIDUE * top:
+                residue.append(n)
+                check(d <= RESIDUE * top, f"train {dtname}: residue grad {n} "
+                                          f"max|d| {d}")
+                continue
+            check(d <= rel * scale + GRAD_ABS,
+                  f"train {dtname}: grad {n} max|d| {d} vs max|g| {scale}")
+            worst_grad = max(worst_grad, d / (scale + 1e-30))
+        sk, sp = _stats(kmodel), _stats(pmodel)
+        worst_stat = max(float(((sk[n] - sp[n]).abs()
+                                - 1e-5 * sp[n].abs()).max()) for n in sk)
+        check(worst_stat <= 1e-5, f"train {dtname}: BN statistics differ "
+                                  f"({worst_stat})")
+        res["kernel_vs_plain"] = {"loss_kernel": lk, "loss_plain": lp,
+                                  "loss_rel": loss_rel,
+                                  "max_grad_rel_to_max": worst_grad,
+                                  "largest_grad": top,
+                                  "residue_grads": residue,
+                                  "bn_stats_excess": worst_stat}
+        print(f"train {dtname}: kernel vs plain step: loss {lk} vs {lp}, "
+              f"worst grad max|d|/max|g| {worst_grad} over "
+              f"{len(gk) - len(residue)} tensors, {len(residue)} residue "
+              f"tensors (max|g| <= {RESIDUE} x {top}), BN stats ok",
+              flush=True)
+        # (b) launches of one step, of a BN refresh and of an eval forward
+        want = {"farthest_point_sample": 2, "query_ball_point": 2,
+                "gather_backward": 2, "fused_sa": 0}
+        check(per_step == want, f"train {dtname}: launches per step "
+                                f"{per_step}, want {want}")
+        refresh = steps.make_bn_refresh_step(
+            kmodel, "fusion_cls", names, torch.Generator(dev).manual_seed(3))
+        evaluate = steps.make_eval_step(kmodel, spec.loss, "fusion_cls",
+                                        NUM_CLASS)
+        cuda_kernels.reset_launches()
+        refresh(batch)
+        em = evaluate(batch)
+        torch.cuda.synchronize()
+        side = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        check(side["gather_backward"] == 0,
+              f"train {dtname}: BN refresh + eval launched {side}")
+        check(int(em["count"]) == TRAIN_BATCH, "eval count")
+        res["launches_per_step"] = per_step
+        res["launches_refresh_plus_eval"] = side
+        print(f"train {dtname}: launches per step {per_step}; BN refresh + "
+              f"eval forward {side}", flush=True)
+        # (c) ten steps on one fixed batch: finite losses, and the loss
+        # falls
+        model = make(dtype, seed=1)
+        fixed = stepper(model, gen_seed=11, fixed=True)
+        losses = [float(fixed(batch, 1e-3, 0.1)["loss"]) for _ in range(10)]
+        check(all(np.isfinite(losses)), f"train {dtname}: losses {losses}")
+        check(losses[-1] < losses[0], f"train {dtname}: loss did not fall "
+                                      f"{losses}")
+        res["fixed_batch_losses"] = losses
+        print(f"train {dtname}: 10 steps on one batch, losses {losses}",
+              flush=True)
+        # (e) step time at B=24 (the full step: augmentation, dropout):
+        # CUDA events over 10 steps after 3 warm-ups
+        step = stepper(model, gen_seed=13)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(torch, lambda: step(batch, 1e-3, 0.1), 10, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        res["step_ms"] = ms
+        res["clouds_per_s"] = TRAIN_BATCH / ms * 1e3
+        res["peak_memory_bytes"] = peak
+        print(f"train {dtname}: median step {ms} ms, "
+              f"{res['clouds_per_s']} clouds/s at B={TRAIN_BATCH}, peak "
+              f"memory {peak / 2**30:.3f} GiB", flush=True)
+        del kmodel, pmodel, model
+        # (d) the main path: one epoch of Trainer.fit (10 steps; eval over
+        # 48 clouds; in bf16 the 8-step BN refresh before it)
+        cfg = TrainConfig(train_size=TRAIN_SIZE, test_size=TEST_SIZE,
+                          epochs=1, num_class=NUM_CLASS,
+                          batch_size=TRAIN_BATCH, npoint=NPOINT,
+                          dtype=dtname, device=str(dev))
+        trainer = Trainer(cfg)
+        cuda_kernels.reset_launches()
+        final = trainer.fit()
+        torch.cuda.synchronize()
+        fit_launches = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        nsteps = trainer.train_pipe.steps_per_epoch()
+        hist = trainer.history[0]
+        check(nsteps == 10, f"fit: {nsteps} steps")
+        check(fit_launches["gather_backward"] == 2 * nsteps,
+              f"fit {dtname}: launches {fit_launches}")
+        check(np.isfinite(hist["train"]["loss"])
+              and np.isfinite(final["eval_loss"])
+              and 0.0 <= final["instance_acc"] <= 1.0,
+              f"fit {dtname}: metrics {hist}")
+        for k, v in fit_launches.items():
+            out["launches"][k] += v
+        res["fit"] = {"train": hist["train"], "eval": final,
+                      "launches": fit_launches,
+                      "bn_refresh_steps": trainer._bn_refresh_n}
+        print(f"fit {dtname}: 1 epoch of {nsteps} steps, train "
+              f"{hist['train']}, eval {final}, launches {fit_launches}",
+              flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+        out[dtname] = res
+    return out
+
+
 def kernels_line(rows, launches):
-    """One entry per kernel, summed over the serving path's two shapes."""
+    """One entry per kernel, summed over its path's two shapes."""
     path = {
         "fps": ("farthest_point_sample", "mm3d_tpu_torch/csrc/fps.cu",
                 "mm3d_tpu/ops/pallas_kernels.py:174", None),
@@ -343,6 +617,9 @@ def kernels_line(rows, launches):
                        "mm3d_tpu/ops/pallas_kernels.py:324", None),
         "fused_sa": ("fused_sa", "mm3d_tpu_torch/csrc/fused_sa.cu",
                      "mm3d_tpu/ops/pallas_kernels.py:961", "bfloat16"),
+        "gather_backward": ("gather_backward",
+                            "mm3d_tpu_torch/csrc/gather_bwd.cu",
+                            "mm3d_tpu/ops/pallas_kernels.py:1704", "float32"),
     }
     out = []
     for name, (wrapper, src, replaces, dtname) in path.items():
@@ -356,7 +633,10 @@ def kernels_line(rows, launches):
             "plain_ms": sum(e["plain_ms"] for e in timed),
             "bound_ms": sum(e["bound_ms"] for e in timed),
             "bound_by": max(timed, key=lambda e: e["bound_ms"])["bound_by"],
-            "library_ms": None})
+            # one PyTorch call computes only the gather backward
+            # (index_add_); FPS, ball query and the fused SA tail have none
+            "library_ms": (sum(e["library_ms"] for e in timed)
+                           if "library_ms" in timed[0] else None)})
     return out
 
 
@@ -397,16 +677,22 @@ def main():
 
     rows = kernel_checks(torch, ops, geometry, dev)
     served = serve(torch, ops, cuda_kernels, dev)
-    kernels = kernels_line(rows, served["launches"])
+    trained = train(torch, ops, cuda_kernels, dev)
+    # each kernel's launches on the main paths: serving (bf16 + fp32) and
+    # one epoch of Trainer.fit (fp32 + bf16)
+    launches = {k: served["launches"][k] + trained["launches"][k]
+                for k in served["launches"]}
+    kernels = kernels_line(rows, launches)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on "
-                                 "the serving path")
+                                 "the main paths")
 
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "kernel_checks": rows,
-                   "serve": served, "kernels": kernels}, f, indent=1)
+                   "serve": served, "train": trained, "kernels": kernels},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

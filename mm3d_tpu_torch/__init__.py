@@ -7,13 +7,17 @@ modules against its JAX twin on the same inputs and weights.
 Layout (mirrors ``mm3d_tpu``)
 -----------------------------
 ops/       plain PyTorch geometry ops, kernel wrappers, dispatch, kernel build
-csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, fused SA)
-models/    nn.Modules: layers, SetAbstraction, image CNN, fusion_cls, registry
-training/  serving entry point (``make_predictor``)
-utils/     flax-variables import (``load_jax_variables``)
+csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, fused SA,
+           gather backward)
+models/    nn.Modules: layers, SetAbstraction, image CNN, fusion_cls, losses,
+           registry
+data/      synthetic datasets, augmentation, the prefetching input pipeline
+training/  serving (``make_predictor``) and training (``Trainer``, steps,
+           optimizer, schedules)
+utils/     flax weight transfer, metrics, profiling on the card
 
-This slice serves the ``fusion_cls`` eval forward. Entry points run on the
-card unless the caller asks for the CPU.
+The port serves and trains ``fusion_cls``. Entry points run on the card
+unless the caller asks for the CPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -1,10 +1,13 @@
-"""2D image branch (counterpart of ``mm3d_tpu/models/image.py``), eval mode.
+"""2D image branch (counterpart of ``mm3d_tpu/models/image.py``).
 
 The module boundary is NHWC as in the JAX package. Inside, the NHWC input
 is viewed as NCHW without a copy; its strides are channels-last, which is
 the layout the card's convolutions prefer. Flax ``padding="SAME"`` pads
 asymmetrically at stride 2 (low 0, high 1 for even sizes), so ``Conv`` pads
 explicitly with flax's formula instead of torch's symmetric ``padding=``.
+BatchNorm normalises axis 1 of the NCHW view; in training its statistics
+reduce over (0, 2, 3) and their shift anchor is ``x[0, :, 0, 0]``, the JAX
+package's ``x[0, 0, 0, :]``.
 """
 
 from __future__ import annotations
@@ -65,12 +68,13 @@ class BasicBlock(nn.Module):
             self.proj = Conv(in_ch, features, 1, stride, dtype)
             self.bn_proj = BatchNorm(features, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x), channels_first=True))
-        y = self.bn2(self.conv2(y), channels_first=True)
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.1
+                ) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x), True, bn_momentum))
+        y = self.bn2(self.conv2(y), True, bn_momentum)
         r = x
         if self.proj is not None:
-            r = self.bn_proj(self.proj(x), channels_first=True)
+            r = self.bn_proj(self.proj(x), True, bn_momentum)
         return torch.relu(y + r)
 
 
@@ -96,12 +100,12 @@ class ImageEncoder(nn.Module):
         if include_global:
             self.fc_glob = Dense(c, global_features, dtype)
 
-    def forward(self, img: torch.Tensor):
+    def forward(self, img: torch.Tensor, bn_momentum: float = 0.1):
         x = img.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels-last strides
-        x = torch.relu(self.stem_bn(self.stem(x), channels_first=True))
+        x = torch.relu(self.stem_bn(self.stem(x), True, bn_momentum))
         for s in range(len(self.stage_features)):
             for b in range(self.blocks_per_stage):
-                x = getattr(self, f"s{s}b{b}")(x)
+                x = getattr(self, f"s{s}b{b}")(x, bn_momentum)
         fmap = x.permute(0, 2, 3, 1)  # stride 4 wrt the input, NHWC
         if not self.include_global:
             return fmap, None

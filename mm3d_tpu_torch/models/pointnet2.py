@@ -1,18 +1,20 @@
 """PointNet++ set abstraction (counterpart of ``mm3d_tpu/models/pointnet2.py``).
 
-This slice carries the eval-mode branches of ``SetAbstraction`` that the
-``fusion_cls`` serving path runs:
+The branches of ``SetAbstraction`` that ``fusion_cls`` serves and trains:
 
-* group_all (``pointnet2.py:142-163``): dense SharedMLP + max;
-* fused (``:232-243``): the BN-folded SA tail in one kernel
+* group_all (``pointnet2.py:142-163``): dense SharedMLP + max; in bf16
+  training the stack computes in f32 (the group_all guard, ``:142-154``);
+* fused (``:232-243``), eval only: the BN-folded SA tail in one kernel
   (``ops.fused_sa``; bf16 serving, or any dtype under impl 'cuda');
-* unfused (``:273-300``): FPS and ball-query kernels, then a PyTorch gather,
-  the folded-free MLP and max (fp32 serving).
+* unfused (``:273-300``): FPS and ball-query kernels, then the gather (whose
+  backward is the gather-backward kernel), the MLP and max. Training always
+  takes it; bf16 training recentres in f32 from the f32 inputs captured
+  before the cast (``:170-178,278-292``).
 
-The dtype casts sit where the JAX module puts them. Still to be ported in
-later slices: the point-shard branch (``:183-230``), kNN grouping
-(``:245-259``), every train-mode branch (with its f32 recentering and guard)
-and the ``MM3D_BF16_DEBUG`` knob (``:30-36``); ``SetAbstractionMsg`` and
+Train or eval is the module's ``training`` flag. The dtype casts sit where
+the JAX module puts them. Still to be ported in later slices: the
+point-shard branch (``:183-230``), kNN grouping (``:245-259``) and the
+``MM3D_BF16_DEBUG`` knob (``:30-36``); ``SetAbstractionMsg`` and
 ``FeaturePropagation`` come with the FP-block slice.
 """
 
@@ -25,7 +27,8 @@ from torch import nn
 
 from mm3d_tpu_torch import ops
 from mm3d_tpu_torch.ops import dispatch
-from mm3d_tpu_torch.models.layers import BatchNorm, SharedMLP, lecun_normal_
+from mm3d_tpu_torch.models.layers import (BatchNorm, SharedMLP,
+                                          guarded_train_dtype, lecun_normal_)
 
 
 def _want_fused_sa(train: bool, mlp, dtype) -> bool:
@@ -40,24 +43,39 @@ def _want_fused_sa(train: bool, mlp, dtype) -> bool:
     return dispatch.get_impl() == "cuda"
 
 
+def _fps_start(train: bool, xyz: torch.Tensor,
+               generator: Optional[torch.Generator]):
+    """Lineage-parity random-start FPS seed (``pointnet2.py:90-102``).
+
+    In training, with a generator (``TrainConfig.fps_random_start``), each
+    cloud starts FPS at a random index; otherwise at index 0."""
+    if train and generator is not None:
+        return torch.randint(0, xyz.shape[1], (xyz.shape[0],),
+                             generator=generator, device=xyz.device,
+                             dtype=torch.int32)
+    return 0
+
+
 class SetAbstraction(nn.Module):
-    """Single-scale grouping SA block, project-first form (eval mode).
+    """Single-scale grouping SA block, project-first form.
 
     ``in_channels`` counts the feature channels besides xyz (0 for raw
     points). Parameters follow the flax tree: ``proj_kernel`` [3+D, C1],
     ``proj_bias``, ``proj_bn`` and ``mlp_rest``; group_all blocks hold one
-    ``mlp``."""
+    ``mlp``. ``f32_train_guard`` computes the block in f32 during bf16
+    training (serving stays bf16), as the JAX attribute does."""
 
     def __init__(self, npoint: Optional[int] = None,
                  radius: Optional[float] = None,
                  nsample: Optional[int] = None, in_channels: int = 0,
                  mlp: Sequence[int] = (), group_all: bool = False,
-                 dtype=None):
+                 dtype=None, f32_train_guard: bool = False):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.mlp_widths = tuple(mlp)
         self.group_all = group_all
         self.dtype = dtype
+        self.f32_train_guard = f32_train_guard
         c_in = 3 + in_channels
         if group_all:
             self.mlp = SharedMLP(c_in, self.mlp_widths, dtype=dtype)
@@ -77,32 +95,40 @@ class SetAbstraction(nn.Module):
         with torch.no_grad():
             self.proj_bias.zero_()
 
-    def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor]):
+    def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor],
+                bn_momentum: float = 0.1,
+                fps_generator: Optional[torch.Generator] = None):
         """xyz [B,N,3] f32, feats [B,N,D] or None -> (new_xyz, [B,S,C'])."""
-        if self.training:
-            raise NotImplementedError(
-                "SetAbstraction is eval-only in this port; call .eval()")
+        train = self.training
         if self.group_all:
+            # bf16 training computes this global-feature stack in f32
+            # (the measured guard of pointnet2.py:142-154)
+            f32 = self.dtype is None or (train
+                                         and self.dtype == torch.bfloat16)
             new_xyz, grouped = ops.sample_and_group_all(xyz, feats)
-            return new_xyz, self.mlp(grouped).amax(dim=2)
+            return new_xyz, self.mlp(grouped, bn_momentum, f32=f32).amax(dim=2)
 
-        dt = self.dtype
+        dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
         if feats is None:
             cat = xyz
         else:
             ct = torch.promote_types(xyz.dtype, feats.dtype)
             cat = torch.cat([xyz.to(ct), feats.to(ct)], dim=-1)
         kernel, bias = self.proj_kernel, self.proj_bias
+        # f32 originals, captured before the bf16 cast: the bf16-train
+        # recentering below starts from them (pointnet2.py:170-178)
+        cat32, kernel32, bias32 = cat, kernel, bias
         if dt is not None:
             cat, kernel, bias = cat.to(dt), kernel.to(dt), bias.to(dt)
-        pre = torch.matmul(cat, kernel)  # [B,N,C1]
-        fps_idx = ops.farthest_point_sample(xyz, self.npoint)
+        fps_idx = ops.farthest_point_sample(
+            xyz, self.npoint, _fps_start(train, xyz, fps_generator))
         new_xyz = ops.index_points(xyz, fps_idx)
-        cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
 
-        if _want_fused_sa(False, self.mlp_widths, dt):
+        if _want_fused_sa(train, self.mlp_widths, self.dtype):
             # eval: BN folds to an affine map, so ball query + gather +
             # MLP + max run as one kernel with no [B,S,K,C] tensor
+            pre = torch.matmul(cat, kernel)  # [B,N,C1]
+            cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
             A, C = self.proj_bn.fold()
             (w1, b1), (w2, b2) = self.mlp_rest.fold()
             out = ops.fused_sa(self.radius, self.nsample, xyz, new_xyz,
@@ -111,9 +137,21 @@ class SetAbstraction(nn.Module):
             return new_xyz, out
 
         idx = ops.query_ball_point(self.radius, self.nsample, xyz, new_xyz)
-        gathered = ops.index_points(pre, idx)  # [B,S,K,C1]
-        h = gathered - cterm[:, :, None, :] + bias
-        h = torch.relu(self.proj_bn(h))
+        if dt is not None and train:
+            # bf16 training: `gathered - cterm` cancels two O(1) terms, and
+            # in bf16 that leaves ~5 bits of the local geometry; recentre in
+            # f32 and cast after (pointnet2.py:278-292)
+            pre32 = torch.matmul(cat32.float(), kernel32.float())
+            ct32 = torch.matmul(new_xyz.float(), kernel32[:3].float())
+            gathered = ops.index_points(pre32, idx)  # [B,S,K,C1] f32
+            h = (gathered - ct32[:, :, None, :] + bias32.float()).to(dt)
+        else:
+            pre = torch.matmul(cat, kernel)  # [B,N,C1]
+            cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
+            gathered = ops.index_points(pre, idx)  # [B,S,K,C1]
+            h = gathered - cterm[:, :, None, :] + bias
+        f32 = dt is None
+        h = torch.relu(self.proj_bn(h, momentum=bn_momentum, f32=f32))
         if self.mlp_rest is not None:
-            h = self.mlp_rest(h)
+            h = self.mlp_rest(h, bn_momentum, f32=f32)
         return new_xyz, h.amax(dim=2)

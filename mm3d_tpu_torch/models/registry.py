@@ -1,7 +1,8 @@
-"""Model registry (counterpart of ``mm3d_tpu/models/registry.py``).
+"""Model registry: config name -> (module builder, loss, task metadata).
 
-Only ``fusion_cls`` is registered in this slice; the other configs of the
-JAX registry join as their modules are ported.
+Counterpart of ``mm3d_tpu/models/registry.py``. Only ``fusion_cls`` is
+registered in this slice; the other configs of the JAX registry join as
+their modules are ported.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 from mm3d_tpu_torch.models import fusion as fu
+from mm3d_tpu_torch.models import pointnet as pn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,6 +19,7 @@ class ModelSpec:
     name: str
     task: str  # classification | partseg | semseg | fusion_cls | fusion_semseg
     builder: Callable[..., Any]
+    loss: Callable[..., Any]
     default_npoint: int
     config_id: Optional[int] = None  # BASELINE.json configs 1..5
 
@@ -48,4 +51,4 @@ def available() -> Dict[str, ModelSpec]:
 
 
 register(ModelSpec("fusion_cls", "fusion_cls", fu.FusionCls,
-                   default_npoint=1024, config_id=4))
+                   pn.pointnet_loss, default_npoint=1024, config_id=4))

@@ -12,6 +12,7 @@ wrapper                kernel                          plain twin
 farthest_point_sample  csrc/fps.cu                     geometry.fps_torch
 query_ball_point       csrc/ball_query.cu (+ .cuh)     geometry.ball_query_torch
 fused_sa               csrc/fused_sa.cu                fused_sa_torch (here)
+gather_backward        csrc/gather_bwd.cu              gather_backward_torch
 =====================  ==============================  ========================
 """
 
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "mm3d_fps_max_points": ("fps", []),
     "mm3d_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
+    "mm3d_gather_bwd": ("gather_bwd", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
+    "mm3d_gather_bwd_max_rows": ("gather_bwd", []),
 }
 
 
@@ -216,7 +219,65 @@ def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
 
 fused_sa.launches = 0
 
-KERNELS = (farthest_point_sample, query_ball_point, fused_sa)
+
+# ------------------------------------------- gather backward (scatter-add)
+
+
+def gather_backward_torch(g: torch.Tensor, idx: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """Plain twin of the gather-backward kernel -> [B,n,C] in g's dtype.
+
+    d[b, idx[b,f]] += g[b,f], summed in f32 (f64 for f64 g) by one
+    ``index_add_``."""
+    B, C = g.shape[0], g.shape[-1]
+    acc = torch.promote_types(g.dtype, torch.float32)
+    offs = (torch.arange(B, device=idx.device, dtype=torch.int64) * n).reshape(
+        (B,) + (1,) * (idx.dim() - 1))
+    flat = torch.zeros((B * n, C), dtype=acc, device=g.device)
+    flat.index_add_(0, (idx.long() + offs).reshape(-1),
+                    g.reshape(-1, C).to(acc))
+    return flat.reshape(B, n, C).to(g.dtype)
+
+
+def gather_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Backward of ``index_points``: g [B,...,C], idx [B,...] -> [B,n,C].
+
+    Duplicate indices accumulate; sums are taken in f32 and cast to g's
+    dtype (f32 or bf16). Two launches on the same inputs give identical
+    bits: each output row sums its contributors in ascending order."""
+    if dispatch.resolve(g) == "torch":
+        return gather_backward_torch(g, idx, n)
+    dev, dt = g.device, g.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"gather_backward takes bf16 or f32 g, got {dt}")
+    if idx.device != dev:
+        raise ValueError(f"idx is on {idx.device}, expected {dev}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    B, C = g.shape[0], g.shape[-1]
+    if tuple(g.shape[:-1]) != tuple(idx.shape):
+        raise ValueError(f"g {tuple(g.shape)} does not match idx "
+                         f"{tuple(idx.shape)}")
+    limit = _fn("mm3d_gather_bwd_max_rows")()
+    if n > limit:
+        raise ValueError(f"gather_backward takes at most {limit} rows, got {n}")
+    F = idx[0].numel() if B else 0
+    out = torch.empty((B, n, C), dtype=dt, device=dev)
+    if B * n * C == 0:
+        return out
+    g = g.contiguous()
+    idx = idx.contiguous()
+    row_start = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
+    perm = torch.empty((B, F), dtype=torch.int32, device=dev)
+    _launch("mm3d_gather_bwd", int(dt == torch.bfloat16), _ptr(g), _ptr(idx),
+            _ptr(row_start), _ptr(perm), _ptr(out), B, F, n, C, _stream(g))
+    gather_backward.launches += 1
+    return out
+
+
+gather_backward.launches = 0
+
+KERNELS = (farthest_point_sample, query_ball_point, fused_sa, gather_backward)
 
 
 def reset_launches() -> None:

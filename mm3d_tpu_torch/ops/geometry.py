@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from mm3d_tpu_torch.ops import dispatch
+
 
 def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum_c a[..., c] * b[..., c], accumulated left to right."""
@@ -37,14 +39,50 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return (s2 - 2.0 * cross) + d2
 
 
-def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Batched gather: points [B,N,C], idx [B,...] -> [B,...,C] (forward only)."""
+def _gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, N, C = points.shape
     offs = (torch.arange(B, device=idx.device, dtype=idx.dtype) * N).reshape(
         (B,) + (1,) * (idx.dim() - 1))
-    flat = points.reshape(B * N, C)
-    out = flat.index_select(0, (idx + offs).reshape(-1))
+    out = points.reshape(B * N, C).index_select(0, (idx + offs).reshape(-1))
     return out.reshape(*idx.shape, C)
+
+
+class _IndexPoints(torch.autograd.Function):
+    """The gather with the scatter-add backward of the JAX custom VJP
+    (``mm3d_tpu/ops/geometry.py:64-92``): ``cuda_kernels.gather_backward``,
+    the hand-written kernel on the card, its plain twin on the CPU.
+
+    The backward runs under the impl mode that was in force at the forward:
+    autograd runs a CUDA backward on its own device thread, which does not
+    see the caller's per-thread ``use_impl``."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = points.shape[1]
+        ctx.impl = dispatch.get_impl()
+        return _gather(points, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        from mm3d_tpu_torch.ops import cuda_kernels  # imports this module
+        (idx,) = ctx.saved_tensors
+        with dispatch.use_impl(ctx.impl):
+            return cuda_kernels.gather_backward(g, idx, ctx.n), None
+
+
+def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched gather: points [B,N,C], idx [B,...] -> [B,...,C].
+
+    One flat row gather over [B*N, C]. Its backward scatter-adds the
+    cotangent through ``cuda_kernels.gather_backward``. With no gradient
+    wanted for ``points`` (serving, the xyz gathers) the gather runs without
+    the autograd Function, whose host cost showed in bf16 serving."""
+    if not (points.requires_grad and torch.is_grad_enabled()):
+        return _gather(points, idx)
+    return _IndexPoints.apply(points, idx)
 
 
 def _start_vector(start_idx, B: int, N: int, device) -> torch.Tensor:
@@ -91,10 +129,11 @@ def ball_query_torch(radius: float, nsample: int, xyz: torch.Tensor,
     """Ball query -> [B,S,nsample] int32 (twin of ``_query_ball_jax``).
 
     The first ``nsample`` point indices with d2 <= radius**2 (radius**2
-    rounded to f32), in ascending order; empty slots repeat the first hit;
-    a centroid with no hit gets all zeros; nsample > N pads the same way."""
+    rounded to the points' dtype), in ascending order; empty slots repeat
+    the first hit; a centroid with no hit gets all zeros; nsample > N pads
+    the same way."""
     N = xyz.shape[1]
-    r2 = float(np.float32(radius * radius))
+    r2 = torch.tensor(radius * radius, dtype=xyz.dtype).item()
     sqr = square_distance(new_xyz, xyz)  # [B,S,N]
     arange = torch.arange(N, dtype=torch.int32, device=xyz.device)
     cand = torch.where(sqr > r2, torch.full_like(arange, N), arange)

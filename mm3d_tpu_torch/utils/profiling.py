@@ -1,22 +1,31 @@
-"""Where the serving forward's time goes on the card.
+"""Where the time of serving and of training goes on the card.
 
-Counterpart of ``mm3d_tpu/utils/profiling.py``. Two views of the
-``fusion_cls`` eval forward served by ``make_predictor``:
+Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the ``fusion_cls``
+eval forward served by ``make_predictor`` (``--mode serve``) and of one
+train step of ``steps.make_train_step`` (``--mode train``):
 
 * ``stage_times`` -- CUDA events around each stage of the model (SA1, SA2,
   SA3, the image CNN), recorded by forward hooks; the rest of the forward
   (concat, FC head, log-softmax) is the total less the stages;
-* ``kernel_table`` -- ``torch.profiler`` over a few forwards: device time by
+* ``train_stage_times`` -- the same for the train step's forward, plus its
+  backward: an event where each stage's backward starts (a backward
+  pre-hook, when the gradient of the stage's output is ready), each
+  stage's span running to the next start (the image and point branches are
+  independent, so the engine may interleave them), and the augmentation and
+  optimizer step;
+* ``kernel_table`` -- ``torch.profiler`` over a few calls: device time by
   kernel name, and the share of the window in which the device ran no
   kernel.
 
 Run on one card from the repository root::
 
-    python -m mm3d_tpu_torch.utils.profiling [--dtype bfloat16|float32]
+    python -m mm3d_tpu_torch.utils.profiling [--mode serve|train]
+        [--dtype bfloat16|float32]
 
-It serves B=128 clouds of 1024 points with 64x64 images (random seeded
-weights and inputs), prints one JSON line and writes it to
-``chiprun_out/profile_serve_<dtype>.json``. It fails without a card.
+Serving takes B=128 clouds of 1024 points with 64x64 images, training B=24
+(random seeded weights and inputs). It prints one JSON line and writes it to
+``profile_<mode>_<dtype>.json`` in the ``--out`` directory. It fails without
+a card.
 """
 
 from __future__ import annotations
@@ -32,6 +41,12 @@ import numpy as np
 import torch
 
 
+def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
 def stage_times(model: torch.nn.Module, call: Callable[[], object],
                 reps: int = 10) -> Dict[str, float]:
     """Median device ms of each stage of a FusionCls forward, and 'total'."""
@@ -39,27 +54,21 @@ def stage_times(model: torch.nn.Module, call: Callable[[], object],
               "sa3": model.point_trunk.sa3, "image": model.image_trunk}
     marks: Dict[str, List[list]] = {n: [] for n in stages}
     handles = []
-
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
     for name, mod in stages.items():
         handles.append(mod.register_forward_pre_hook(
-            lambda m, a, name=name: marks[name].append([event(), None])))
+            lambda m, a, name=name: marks[name].append([_event(), None])))
         handles.append(mod.register_forward_hook(
             lambda m, a, o, name=name: marks[name][-1].__setitem__(
-                1, event())))
+                1, _event())))
     totals = []
     try:
         call()  # warm-up
         for v in marks.values():
             v.clear()
         for _ in range(reps):
-            e0 = event()
+            e0 = _event()
             call()
-            totals.append((e0, event()))
+            totals.append((e0, _event()))
         torch.cuda.synchronize()
     finally:
         for h in handles:
@@ -71,9 +80,80 @@ def stage_times(model: torch.nn.Module, call: Callable[[], object],
     return out
 
 
+def train_stage_times(model: torch.nn.Module,
+                      optimizer: torch.optim.Optimizer,
+                      step: Callable[[], object],
+                      reps: int = 10) -> Dict[str, float]:
+    """Median device ms of one train step by part: 'augment'; the forward
+    stages as in ``stage_times`` ('fwd_*'); the backward from its start to
+    the first stage's backward ('bwd_head') and each stage's backward
+    ('bwd_*'); 'optimizer'; and 'total'. ``step`` must run the model once,
+    the backward and ``optimizer.step`` (a step of
+    ``steps.make_train_step`` does)."""
+    stages = {"sa1": model.point_trunk.sa1, "sa2": model.point_trunk.sa2,
+              "sa3": model.point_trunk.sa3, "image": model.image_trunk}
+    marks: Dict[str, list] = {}
+
+    def mark(name):
+        marks.setdefault(name, []).append(_event())
+
+    handles = [
+        model.register_forward_pre_hook(lambda m, a: mark("fwd_start")),
+        model.register_forward_hook(lambda m, a, o: mark("fwd_end")),
+        model.register_full_backward_pre_hook(lambda m, g: mark("bwd_start")),
+        optimizer.register_step_pre_hook(lambda o, a, k: mark("opt_start")),
+        optimizer.register_step_post_hook(lambda o, a, k: mark("opt_end"))]
+    for name, mod in stages.items():
+        handles += [
+            mod.register_forward_pre_hook(
+                lambda m, a, name=name: mark(f"fwd_{name}_start")),
+            mod.register_forward_hook(
+                lambda m, a, o, name=name: mark(f"fwd_{name}_end")),
+            mod.register_full_backward_pre_hook(
+                lambda m, g, name=name: mark(f"bwd_{name}"))]
+    totals = []
+    try:
+        step()  # warm-up
+        marks.clear()
+        for _ in range(reps):
+            e0 = _event()
+            step()
+            totals.append((e0, _event()))
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+
+    def med(a, b):
+        return float(np.median([x.elapsed_time(y) for x, y in zip(a, b)]))
+
+    out = {"augment": med([a for a, _ in totals], marks["fwd_start"])}
+    for name in stages:
+        out[f"fwd_{name}"] = med(marks[f"fwd_{name}_start"],
+                                 marks[f"fwd_{name}_end"])
+    out["fwd_total"] = med(marks["fwd_start"], marks["fwd_end"])
+    out["fwd_rest"] = out["fwd_total"] - sum(out[f"fwd_{n}"] for n in stages)
+    # per step, order the stages' backward starts in time; a stage runs to
+    # the next start, the last one to the optimizer's start
+    spans: Dict[str, list] = {f"bwd_{n}": [] for n in ("head", *stages)}
+    for i in range(reps):
+        t0 = marks["bwd_start"][i]
+        starts = sorted((t0.elapsed_time(marks[f"bwd_{n}"][i]), n)
+                        for n in stages)
+        starts.append((t0.elapsed_time(marks["opt_start"][i]), None))
+        spans["bwd_head"].append(starts[0][0])
+        for (t, n), (t_next, _) in zip(starts, starts[1:]):
+            spans[f"bwd_{n}"].append(t_next - t)
+    out.update({k: float(np.median(v)) for k, v in spans.items()})
+    out["bwd_total"] = med(marks["bwd_start"], marks["opt_start"])
+    out["optimizer"] = med(marks["opt_start"], marks["opt_end"])
+    out["total"] = med([a for a, _ in totals], [b for _, b in totals])
+    return out
+
+
 def kernel_table(call: Callable[[], object], reps: int = 3,
                  top: int = 15) -> dict:
-    """Device time by kernel over ``reps`` forwards, and the idle share."""
+    """Device time by kernel over ``reps`` calls, and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -88,7 +168,10 @@ def kernel_table(call: Callable[[], object], reps: int = 3,
     by_name: Dict[str, list] = {}
     spans = []
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # device kernels only: not the ranges that annotate host calls on
+        # the device timeline (e.g. "Optimizer.step#Adam.step")
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         row = by_name.setdefault(e.name, [0.0, 0])
@@ -101,24 +184,79 @@ def kernel_table(call: Callable[[], object], reps: int = 3,
             end = t
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {
-        "forwards": reps,
-        "wall_ms_per_forward": wall_us / reps / 1e3,
-        "device_busy_ms_per_forward": busy / reps / 1e3 if spans else None,
+        "calls": reps,
+        "wall_ms_per_call": wall_us / reps / 1e3,
+        "device_busy_ms_per_call": busy / reps / 1e3 if spans else None,
         "device_idle_share": 1.0 - busy / wall_us if spans else None,
-        "top_kernels": [{"name": n[:120], "ms_per_forward": us / reps / 1e3,
-                         "launches_per_forward": c / reps}
+        "kernel_launches_per_call": sum(c for _, c in by_name.values()) / reps,
+        "top_kernels": [{"name": n[:120], "ms_per_call": us / reps / 1e3,
+                         "launches_per_call": c / reps}
                         for n, (us, c) in kernels[:top]],
     }
 
 
-def main(argv=None) -> int:
+def _clouds(r: np.random.RandomState, B: int) -> np.ndarray:
+    pts = r.randn(B, 1024, 3).astype(np.float32)
+    pts -= pts.mean(1, keepdims=True)
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True).max(1, keepdims=True)
+    return pts
+
+
+def _serve(dtype, batch: int) -> dict:
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
 
+    model = init_params(get_model("fusion_cls").builder(num_class=40), 0)
+    pred = make_predictor("fusion_cls", model.state_dict(), device="cuda",
+                          num_class=40, dtype=dtype)
+    r = np.random.RandomState(0)
+    inputs = [torch.from_numpy(a).cuda() for a in (
+        _clouds(r, batch), r.rand(batch, 64, 64, 3).astype(np.float32))]
+
+    def call():
+        return pred(*inputs)
+
+    return {"stage_ms": stage_times(pred.model, call),
+            "profile": kernel_table(call)}
+
+
+def _train(dtype, batch: int) -> dict:
+    from mm3d_tpu_torch.data.augment import TASK_PIPELINES
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import steps
+    from mm3d_tpu_torch.training.state import make_optimizer
+
+    spec = get_model("fusion_cls")
+    model = init_params(spec.builder(num_class=40, dtype=dtype), 0).cuda()
+    opt = make_optimizer(model.parameters(), "adam", 1e-4)
+    step = steps.make_train_step(
+        model, spec.loss, opt, "fusion_cls",
+        augment_names=TASK_PIPELINES["fusion_cls"],
+        generator=torch.Generator("cuda").manual_seed(1))
+    r = np.random.RandomState(0)
+    eye = np.eye(3, dtype=np.float32)
+    batch_ = {k: torch.from_numpy(a).cuda() for k, a in {
+        "points": _clouds(r, batch),
+        "image": r.rand(batch, 64, 64, 3).astype(np.float32),
+        "K": np.broadcast_to(eye * 32, (batch, 3, 3)).copy(),
+        "R": np.broadcast_to(eye, (batch, 3, 3)).copy(),
+        "t": np.tile(np.array([0, 0, 3], np.float32), (batch, 1)),
+        "label": r.randint(0, 40, batch).astype(np.int32)}.items()}
+
+    def call():
+        return step(batch_, 1e-3, 0.1)
+
+    return {"stage_ms": train_stage_times(model, opt, call),
+            "profile": kernel_table(call)}
+
+
+def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--mode", choices=("serve", "train"), default="serve")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
-    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--batch", type=int, default=None,
+                   help="default: 128 serving, 24 training")
     p.add_argument("--out", default="chiprun_out")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -129,26 +267,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-
-    model = init_params(get_model("fusion_cls").builder(num_class=40), 0)
-    pred = make_predictor(
-        "fusion_cls", model.state_dict(), device="cuda", num_class=40,
-        dtype=torch.bfloat16 if args.dtype == "bfloat16" else None)
-    r = np.random.RandomState(0)
-    pts = r.randn(args.batch, 1024, 3).astype(np.float32)
-    pts -= pts.mean(1, keepdims=True)
-    pts /= np.linalg.norm(pts, axis=-1, keepdims=True).max(1, keepdims=True)
-    img = r.rand(args.batch, 64, 64, 3).astype(np.float32)
-    inputs = [torch.from_numpy(a).cuda() for a in (pts, img)]
-
-    def call():
-        return pred(*inputs)
-
-    result = {"card": card, "dtype": args.dtype, "batch": args.batch,
-              "stage_ms": stage_times(pred.model, call),
-              "profile": kernel_table(call)}
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    batch = args.batch or (128 if args.mode == "serve" else 24)
+    run = _serve if args.mode == "serve" else _train
+    result = {"card": card, "mode": args.mode, "dtype": args.dtype,
+              "batch": batch, **run(dtype, batch)}
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_serve_{args.dtype}.json"),
+    with open(os.path.join(args.out, f"profile_{args.mode}_{args.dtype}.json"),
               "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)

@@ -23,6 +23,7 @@ from mm3d_tpu.models.image import ImageEncoder as JaxImageEncoder
 from mm3d_tpu.models.pointnet2 import SetAbstraction as JaxSA
 from mm3d_tpu_torch.models import get_model, init_params, pointnet2
 from mm3d_tpu_torch.models.image import ImageEncoder
+from mm3d_tpu_torch.models.layers import BatchNorm
 from mm3d_tpu_torch.training import agreement, make_predictor
 from mm3d_tpu_torch.utils import load_jax_variables
 
@@ -198,10 +199,26 @@ def test_make_predictor_defaults_to_cuda_and_raises_without_it(monkeypatch):
         make_predictor("fusion_cls", state, num_class=3)
 
 
-def test_modules_are_eval_only():
-    model = get_model("fusion_cls").builder(num_class=3)  # training mode
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 64, 3), torch.zeros(1, 16, 16, 3))
+def test_train_mode_forward_updates_bn_buffers():
+    """A model in training mode runs its train forward (no eval-only
+    guard) and moves every BN running statistic; eval mode moves none."""
+    model = init_params(get_model("fusion_cls").builder(num_class=3))
+    r = np.random.RandomState(8)
+    pts = torch.from_numpy(r.randn(2, 64, 3).astype(np.float32))
+    img = torch.from_numpy(r.rand(2, 16, 16, 3).astype(np.float32))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    logp, _ = model(pts, img, generator=torch.Generator().manual_seed(0))
+    assert logp.shape == (2, 3) and bool(torch.isfinite(logp).all())
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    stats = [k for k in after if k.endswith((".mean", ".var"))]
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    assert n_bn > 20 and len(stats) == 2 * n_bn
+    assert all(not torch.equal(before[k], after[k]) for k in stats)
+    model.eval()
+    with torch.no_grad():
+        model(pts, img)
+    assert all(torch.equal(after[k], v)
+               for k, v in model.state_dict().items())
 
 
 def test_load_jax_variables_rejects_mismatches(fusion_case):

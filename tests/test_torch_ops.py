@@ -10,6 +10,7 @@ same plain twins there).
 
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -234,3 +235,78 @@ def test_dispatch_thread_override_and_global_default():
     finally:
         dispatch.set_impl("auto")
     assert seen["worker"] == "torch"  # the process-wide default, not 'auto'
+
+
+# ------------------------------------------------------ gather backward
+
+
+@pytest.mark.parametrize("B,n,F,C,dtype", [
+    (2, 100, (30, 4), 24, "float32"),   # n, C unaligned; duplicate idx
+    (1, 256, (512,), 3, "float32"),     # xyz-style gather, many duplicates
+    (2, 100, (30, 4), 24, "bfloat16"),
+])
+def test_gather_backward_torch_matches_pallas(B, n, F, C, dtype):
+    """tests/test_gather_bwd.py's shapes plus bf16 g: the plain twin
+    against gather_bwd_pallas in interpret mode."""
+    r = np.random.RandomState(0)
+    g = r.randn(B, *F, C).astype(np.float32)
+    idx = r.randint(0, n, (B, *F)).astype(np.int32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = pk.gather_bwd_pallas(jnp.asarray(g).astype(jdt), jnp.asarray(idx),
+                                n, interpret=True)
+    assert want.dtype == jdt
+    tg = torch.from_numpy(g).to(tdt)
+    got = tops.gather_backward_torch(tg, torch.from_numpy(idx), n)
+    wrapped = tops.gather_backward(tg, torch.from_numpy(idx), n)
+    assert got.dtype == tdt and got.shape == (B, n, C)
+    # f32 sums in another order: test_gather_bwd.py's bound; bf16: both
+    # round the same f32 sums, so they differ by at most one bf16 ulp
+    rtol = 1e-5 if dtype == "float32" else 2 ** -8
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=rtol, atol=1e-5)
+    np.testing.assert_array_equal(wrapped.float().numpy(),
+                                  got.float().numpy())
+
+
+def test_index_points_grad_matches_jax():
+    """Gradients through the port's gather (backward: gather_backward) and
+    through the JAX custom VJP, on the same cotangent."""
+    r = np.random.RandomState(1)
+    pts = r.randn(2, 64, 8).astype(np.float32)
+    idx = r.randint(0, 64, (2, 16, 4)).astype(np.int32)
+    co = r.randn(2, 16, 4, 8).astype(np.float32)
+    want = jax.grad(lambda p: jnp.sum(G.index_points(p, jnp.asarray(idx))
+                                      * jnp.asarray(co)))(jnp.asarray(pts))
+    tp = torch.from_numpy(pts).requires_grad_(True)
+    (tops.index_points(tp, torch.from_numpy(idx))
+     * torch.from_numpy(co)).sum().backward()
+    np.testing.assert_allclose(tp.grad.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_index_points_records_nothing_without_grad():
+    """The xyz gathers (no gradient wanted) build no backward node."""
+    pts = torch.zeros(1, 8, 3)
+    idx = torch.zeros(1, 4, dtype=torch.int32)
+    assert tops.index_points(pts, idx).grad_fn is None
+    out = tops.index_points(pts.requires_grad_(True), idx)
+    assert out.grad_fn is not None
+
+
+def test_index_points_backward_keeps_the_forward_impl_mode():
+    """autograd runs a CUDA backward on its own thread, which does not see
+    the caller's use_impl: the backward takes the forward's mode."""
+    pts = torch.zeros(1, 8, 3, requires_grad=True)
+    idx = torch.zeros(1, 4, dtype=torch.int32)
+    with dispatch.use_impl("cuda"):
+        out = tops.index_points(pts, idx)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        out.sum().backward()
+
+
+def test_gather_backward_rejects_bad_inputs():
+    with dispatch.use_impl("cuda"):
+        with pytest.raises(RuntimeError, match="CUDA tensors"):
+            tops.gather_backward(torch.zeros(1, 4, 3),
+                                 torch.zeros(1, 4, dtype=torch.int32), 8)
