@@ -12,15 +12,25 @@ that goes wrong:
    kernels of mm3d_tpu_torch/csrc from source, printing the build seconds;
 2. holds each kernel against its plain PyTorch twin (``use_impl("torch")``)
    on the card at the shapes of the serving and training paths: FPS and
-   ball query bit-exact, the fused SA tail and the gather backward within
-   the stated tolerances (the gather backward also bit-identical across two
-   launches), and times the kernel, its plain twin and, where one PyTorch
-   call computes the same function, that call;
+   ball query bit-exact, the fused SA tail, the gather backward, the fused
+   FP tail (fusion_sem_seg's FP2 and FP1, plus tie cases) and the bilinear
+   image sampling within the stated tolerances (the gather backward also
+   bit-identical across two launches), and times the kernel, its plain twin
+   and, where one PyTorch call computes the same function, that call: the
+   device time per call from torch.profiler (``ms``, ``plain_ms``,
+   ``library_ms``, the numbers of the kernels line) and CUDA events around
+   a call (``*call_ms``, the host's launch time included);
 3. serves fusion_cls through ``make_predictor`` at full width (B=128 clouds
    of 1024 points, 64x64 images, 40 classes, random seeded weights) in bf16
    and fp32: 3 requests each with the launch counts reset just before, then
    checks shapes, finiteness, fp32 parity of the kernels path with the plain
    path, bf16-vs-fp32 agreement, and measures clouds/s;
+3b. serves fusion_sem_seg (config 5) the same way at full width: B=16
+   synthetic S3DIS-style blocks of 2048 9-dim points with their 64x64
+   rendered views and cameras, 13 classes; checks per-point log-probs
+   (shape, finiteness, normalisation), the launches per forward, fp32
+   kernels-vs-plain parity, bf16-vs-fp32 per-point argmax agreement and the
+   share of points the camera sees, and measures clouds/s and points/s;
 4. trains fusion_cls at full width (B=24 clouds, the trainer's default), in
    fp32 with TF32 off and then in bf16 mixed precision: one step on the
    kernel path against one on the plain path from the same state and batch
@@ -47,6 +57,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, NPOINT, IMAGE_HW, NUM_CLASS = 128, 1024, (64, 64), 40
 TRAIN_BATCH = 24  # TrainConfig's default batch
+# fusion_sem_seg serving: 16 blocks of the registry's 2048 points (32,768
+# points per request), TrainConfig's 64x64 views, S3DIS's 13 classes
+SEG_BATCH, SEG_NPOINT, SEG_CLASSES = 16, 2048, 13
 TRAIN_SIZE, TEST_SIZE = 240, 48  # one epoch of 10 steps, 2 eval batches
 # H100 SXM published peaks (NVIDIA H100 data sheet):
 # device memory rate, dense bf16 tensor-core rate, f32 CUDA-core rate
@@ -121,6 +134,16 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return float(np.median(times))
 
 
+def times(torch, fn, reps, key="", warmup=2):
+    """``{key}ms``: device time per call of fn(), the kernels and copies it
+    puts on the card (torch.profiler), the host's launch time excluded;
+    ``{key}call_ms``: CUDA events around one call, which also count the
+    time the card waits for the host to launch it."""
+    from mm3d_tpu_torch.utils.profiling import device_ms
+    return {f"{key}ms": device_ms(fn, reps),
+            f"{key}call_ms": cuda_ms(torch, fn, reps, warmup)}
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -191,12 +214,12 @@ def kernel_checks(torch, ops, geometry, dev):
         entry = {"bit_exact": True}
         if timed:
             B, N, _ = x.shape
-            entry["ms"] = cuda_ms(torch, lambda: ops.farthest_point_sample(
-                x, npoint, start), 20)
+            entry.update(times(torch, lambda: ops.farthest_point_sample(
+                x, npoint, start), 20))
             with ops.use_impl("torch"):
-                entry["plain_ms"] = cuda_ms(
+                entry.update(times(
                     torch, lambda: ops.farthest_point_sample(x, npoint, start),
-                    3, warmup=1)
+                    3, "plain_", warmup=1))
             entry.update(bound(
                 B * N * 12 + B * npoint * 4,
                 {"float32": 9 * B * (npoint - 1) * N}))
@@ -222,11 +245,11 @@ def kernel_checks(torch, ops, geometry, dev):
         if timed:
             B, N, _ = x.shape
             S = cents.shape[1]
-            entry["ms"] = cuda_ms(torch, lambda: ops.query_ball_point(
-                radius, K, x, cents), 20)
+            entry.update(times(torch, lambda: ops.query_ball_point(
+                radius, K, x, cents), 20))
             with ops.use_impl("torch"):
-                entry["plain_ms"] = cuda_ms(torch, lambda: ops.query_ball_point(
-                    radius, K, x, cents), 5)
+                entry.update(times(torch, lambda: ops.query_ball_point(
+                    radius, K, x, cents), 5, "plain_"))
             visits = ball_query_visits(torch, geometry, radius, K, x, cents)
             entry.update(bound(
                 (B * N + B * S) * 12 + B * S * K * 4,
@@ -268,12 +291,11 @@ def kernel_checks(torch, ops, geometry, dev):
                 check(worst <= F32_ATOL,
                       f"fused SA {label} fp32: |d| - rtol|ref| max {worst}")
             es = 2 if dt == torch.bfloat16 else 4
-            entry = {
-                "dtype": dtname, "max_abs_err": float(err.max()),
-                "ms": cuda_ms(torch, lambda: ops.fused_sa(*args), 20)}
+            entry = {"dtype": dtname, "max_abs_err": float(err.max()),
+                     **times(torch, lambda: ops.fused_sa(*args), 20)}
             with ops.use_impl("torch"):
-                entry["plain_ms"] = cuda_ms(
-                    torch, lambda: ops.fused_sa(*args), 5)
+                entry.update(times(torch, lambda: ops.fused_sa(*args), 5,
+                                   "plain_"))
             # MLP products in the features' dtype, selection in f32
             flops = {"bfloat16": 0, "float32": BQ_FLOPS_PER_POINT * visits}
             flops[dtname] += 2 * B * S * K * (C1 * C2 + C2 * C3)
@@ -336,39 +358,182 @@ def kernel_checks(torch, ops, geometry, dev):
         if timed:
             B, C_ = gg.shape[0], gg.shape[-1]
             F = idx[0].numel()
-            entry["ms"] = cuda_ms(torch, lambda: ops.gather_backward(
-                gg, idx, n), 20)
+            entry.update(times(torch, lambda: ops.gather_backward(
+                gg, idx, n), 20))
             with ops.use_impl("torch"):
-                entry["plain_ms"] = cuda_ms(
-                    torch, lambda: ops.gather_backward(gg, idx, n), 20)
+                entry.update(times(
+                    torch, lambda: ops.gather_backward(gg, idx, n), 20,
+                    "plain_"))
             # the library yardstick: one index_add_ into zeros, with the
             # flat int64 row index built beforehand
             offs = (torch.arange(B, device=dev) * n).reshape(B, 1, 1)
             flat_idx = (idx.long() + offs).reshape(-1)
             flat_g = gg.reshape(-1, C_)
-            entry["library_ms"] = cuda_ms(torch, lambda: torch.zeros(
-                B * n, C_, device=dev).index_add_(0, flat_idx, flat_g), 20)
+            entry.update(times(torch, lambda: torch.zeros(
+                B * n, C_, device=dev).index_add_(0, flat_idx, flat_g), 20,
+                "library_"))
             es = gg.element_size()
             entry.update(bound(B * F * C_ * es + B * F * 4 + B * n * C_ * es,
                                {"float32": B * F * C_}))
         record("gather_backward", label, entry)
+    semseg_kernel_checks(torch, ops, dev, record)
     return rows
+
+
+def _rel_err(got, want):
+    """max|d| / max|ref|, the bound tests/test_fused_fp.py uses."""
+    gf, wf = got.float(), want.float()
+    return (float((gf - wf).abs().max()) / max(float(wf.abs().max()), 1e-9),
+            float((gf - wf).abs().max()))
+
+
+def semseg_kernel_checks(torch, ops, dev, record):
+    """The fused FP tail and the bilinear sampling at fusion_sem_seg's
+    serving shapes (B=16 blocks of 2048 points), against their plain twins.
+
+    Both twins repeat their kernel's arithmetic in the same order, so the
+    expected difference is 0; the bounds are the ones tests/test_fused_fp.py
+    holds the Pallas kernel to (f32 1e-6, bf16 2e-2 of max|ref|) and, for
+    the sampling, 1e-6 of max|ref| (f32) and one bf16 ulp (bf16)."""
+    import torch.nn.functional as F
+    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.ops import projection
+
+    B, N = SEG_BATCH, SEG_NPOINT
+    pts, _, K, R, t = (torch.from_numpy(a).to(dev)
+                       for a in semseg_request(B, N, IMAGE_HW, seed=5))
+    xyz = pts[..., :3].contiguous()
+    with ops.use_impl("torch"):
+        l1 = ops.index_points(xyz, ops.fps_torch(xyz, 256))
+        l2 = ops.index_points(l1, ops.fps_torch(l1, 64))
+    g = np.random.RandomState(3)
+
+    def feats(*shape):
+        return torch.from_numpy(g.randn(*shape).astype(np.float32)).to(dev)
+
+    # ties: a duplicated sparse point with a dense point on it, and a cloud
+    # on the 1/16 grid (exact distances, many equal)
+    dup1, dup2 = xyz[:, :512].clone(), l1.clone()
+    dup2[:, 10] = dup2[:, 3]
+    dup1[:, 0] = dup2[:, 3]
+    grid1 = torch.from_numpy(g.randint(-32, 33, (4, 300, 3)).astype(
+        np.float32) / 16).to(dev)
+    grid2 = torch.from_numpy(g.randint(-32, 33, (4, 40, 3)).astype(
+        np.float32) / 16).to(dev)
+    for label, x1, x2, C, timed in (
+            ("FP2 N=256 M=64 C=256", l1, l2, 256, True),
+            ("FP1 N=2048 M=256 C=128", xyz, l1, 128, True),
+            ("duplicated sparse point", dup1, dup2, 128, False),
+            ("1/16 grid, ties", grid1, grid2, 24, False)):
+        Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
+        pre32, skip32 = feats(Bx, Mx, C), feats(Bx, Nx, C)
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32)):
+            pre, skip = pre32.to(dt), skip32.to(dt)
+            got = ops.fused_fp(x1, x2, pre, skip)
+            with ops.use_impl("torch"):
+                want = ops.fused_fp(x1, x2, pre, skip)
+            torch.cuda.synchronize()
+            check(got.shape == (Bx, Nx, C) and got.dtype == dt,
+                  f"fused FP {label} {dtname}: shape/dtype")
+            rel, err = _rel_err(got, want)
+            check(rel < (2e-2 if dt == torch.bfloat16 else 1e-6),
+                  f"fused FP {label} {dtname}: max|d|/max|ref| {rel}")
+            entry = {"dtype": dtname, "max_abs_err": err,
+                     "bit_exact": bool(torch.equal(got, want))}
+            if timed:
+                entry.update(times(torch, lambda: ops.fused_fp(
+                    x1, x2, pre, skip), 20))
+                with ops.use_impl("torch"):
+                    entry.update(times(torch, lambda: ops.fused_fp(
+                        x1, x2, pre, skip), 10, "plain_"))
+                # no single PyTorch call computes this function
+                entry["library_ms"] = None
+                es = pre.element_size()
+                entry.update(bound(
+                    (Bx * Nx + Bx * Mx) * 12
+                    + (Bx * Mx * C + 2 * Bx * Nx * C) * es,
+                    # 8 f32 operations per distance, 6 per interpolated
+                    # channel (3 products, 2 sums, the skip add)
+                    {"float32": 8 * Bx * Nx * Mx + 6 * Bx * Nx * C}))
+            record("fused_fp", f"{label} {dtname}", entry)
+
+    # bilinear sampling at the projected points of the request (out-of-frame
+    # and behind-camera points included), on a [16,16,16,128] stride-4 map
+    H, W, C = IMAGE_HW[0] // 4, IMAGE_HW[1] // 4, 128
+    uv, depth = projection.project_points(xyz, K, R, t)
+    uv = (uv / 4.0).contiguous()
+    integer = torch.floor(uv)
+    fmap32 = feats(B, H, W, C)
+    # grid_sample's normalised coordinates for the same pixel positions
+    # (align_corners=True maps -1..1 onto pixel centres 0..W-1)
+    grid = torch.stack([uv[..., 0] / (W - 1) * 2 - 1,
+                        uv[..., 1] / (H - 1) * 2 - 1], -1)[:, :, None, :]
+    for dtname, dt in (("bfloat16", torch.bfloat16),
+                       ("float32", torch.float32)):
+        fmap = fmap32.to(dt)
+        for label, u in ((f"map [{B},{H},{W},{C}] at {B}x{N} points", uv),
+                         ("integer coordinates", integer)):
+            got = ops.bilinear_sample(fmap, u)
+            with ops.use_impl("torch"):
+                want = ops.bilinear_sample(fmap, u)
+            torch.cuda.synchronize()
+            check(got.shape == (B, N, C) and got.dtype == dt,
+                  f"bilinear {label} {dtname}: shape/dtype")
+            gf, wf = got.float(), want.float()
+            err = (gf - wf).abs()
+            if dt == torch.bfloat16:
+                mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+                ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+                check(bool((err <= ulp).all()),
+                      f"bilinear {label} bf16: more than one bf16 ulp")
+            else:
+                rel = float(err.max()) / max(float(wf.abs().max()), 1e-9)
+                check(rel < 1e-6, f"bilinear {label} fp32: max|d|/max|ref| "
+                                  f"{rel}")
+            entry = {"dtype": dtname, "max_abs_err": float(err.max()),
+                     "bit_exact": bool(torch.equal(got, want))}
+            if u is uv:
+                inside = ((u[..., 0] > -1) & (u[..., 0] < W)
+                          & (u[..., 1] > -1) & (u[..., 1] < H))
+                entry["points_touching_the_map"] = float(
+                    inside.float().mean())
+                entry.update(times(torch, lambda: ops.bilinear_sample(
+                    fmap, u), 20))
+                with ops.use_impl("torch"):
+                    entry.update(times(
+                        torch, lambda: ops.bilinear_sample(fmap, u), 10,
+                        "plain_"))
+                # the library yardstick: one grid_sample over the NCHW view
+                # (it takes bf16 and f32 on the card)
+                nchw = fmap.permute(0, 3, 1, 2)
+                gs = grid.to(dt)
+
+                def library():
+                    return F.grid_sample(nchw, gs, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True)
+
+                entry.update(times(torch, library, 20, "library_"))
+                entry["library_max_abs_diff"] = float(
+                    (library()[..., 0].permute(0, 2, 1).float() - gf).abs()
+                    .max())
+                es = fmap.element_size()
+                entry.update(bound(B * H * W * C * es + B * N * 8
+                                   + B * N * C * es,
+                                   {"float32": 10 * B * N * C}))
+            record("bilinear_sample", f"{label} {dtname}", entry)
 
 
 def serve(torch, ops, cuda_kernels, dev):
     """fusion_cls through make_predictor at full width, bf16 and fp32."""
     from mm3d_tpu_torch.models import get_model, init_params
-    from mm3d_tpu_torch.models.layers import BatchNorm
     from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
 
     model = init_params(get_model("fusion_cls").builder(num_class=NUM_CLASS),
                         seed=0)
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():  # non-trivial BN statistics, so the folds matter
-        for m in model.modules():
-            if isinstance(m, BatchNorm):
-                m.mean.normal_(0.0, 0.1, generator=g)
-                m.var.uniform_(0.5, 1.5, generator=g)
+    nontrivial_bn(model, seed=1)  # so the folds matter
     state = model.state_dict()
     preds = {"bfloat16": make_predictor("fusion_cls", state,
                                         dtype=torch.bfloat16, device=dev,
@@ -393,12 +558,14 @@ def serve(torch, ops, cuda_kernels, dev):
     n = len(reqs)
     check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
                                  "query_ball_point": 0, "fused_sa": 2 * n,
-                                 "gather_backward": 0},
+                                 "gather_backward": 0, "fused_fp": 0,
+                                 "bilinear_sample": 0},
           f"bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused SA "
           "per forward")
     check(counts["float32"] == {"farthest_point_sample": 2 * n,
                                 "query_ball_point": 2 * n, "fused_sa": 0,
-                                "gather_backward": 0},
+                                "gather_backward": 0, "fused_fp": 0,
+                                "bilinear_sample": 0},
           f"fp32 launches {counts['float32']}: want 2 FPS + 2 ball query "
           "per forward")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
@@ -427,6 +594,102 @@ def serve(torch, ops, cuda_kernels, dev):
               f"{rates[dtname]['clouds_per_s']} clouds/s at B={BATCH}",
               flush=True)
     return {"launches": launches, "launches_by_dtype": counts,
+            "fp32_kernels_vs_plain": fp32_delta,
+            "bf16_vs_fp32": {"argmax_agreement": agree,
+                             "max_logp_delta": bf16_delta},
+            "throughput": rates}
+
+
+def serve_semseg(torch, ops, cuda_kernels, dev):
+    """fusion_sem_seg through make_predictor at full width, bf16 and fp32."""
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    B, N, ncls = SEG_BATCH, SEG_NPOINT, SEG_CLASSES
+    model = init_params(get_model("fusion_sem_seg").builder(num_class=ncls),
+                        seed=0)
+    nontrivial_bn(model, seed=1)
+    state = model.state_dict()
+    preds = {"bfloat16": make_predictor("fusion_sem_seg", state,
+                                        dtype=torch.bfloat16, device=dev,
+                                        num_class=ncls),
+             "float32": make_predictor("fusion_sem_seg", state, device=dev,
+                                       num_class=ncls)}
+    reqs = [[torch.from_numpy(a).to(dev)
+             for a in semseg_request(B, N, IMAGE_HW, seed=s)]
+            for s in (20, 21, 22)]
+    counts, logp = {}, {}
+    for dtname, pred in preds.items():
+        cuda_kernels.reset_launches()
+        logp[dtname] = [pred(*r) for r in reqs]
+        torch.cuda.synchronize()
+        counts[dtname] = {k.__name__: k.launches
+                          for k in cuda_kernels.KERNELS}
+        print(f"serve fusion_sem_seg {dtname}: 3 requests of B={B} x N={N}, "
+              f"launches {counts[dtname]}", flush=True)
+        for lp in logp[dtname]:
+            check(lp.shape == (B, N, ncls) and lp.dtype == torch.float32,
+                  f"semseg {dtname} log-probs shape {tuple(lp.shape)} "
+                  f"{lp.dtype}")
+            check(bool(torch.isfinite(lp).all()), f"semseg {dtname}: "
+                                                  "non-finite")
+            norm = float((lp.exp().sum(-1) - 1).abs().max())
+            check(norm < 1e-4, f"semseg {dtname}: exp(log-probs) sums off 1 "
+                               f"by {norm}")
+    n = len(reqs)
+    check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
+                                 "query_ball_point": 0, "fused_sa": 2 * n,
+                                 "gather_backward": 0, "fused_fp": 2 * n,
+                                 "bilinear_sample": n},
+          f"semseg bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused "
+          "SA + 2 fused FP + 1 bilinear per forward")
+    check(counts["float32"] == {"farthest_point_sample": 2 * n,
+                                "query_ball_point": 2 * n, "fused_sa": 0,
+                                "gather_backward": 0, "fused_fp": 2 * n,
+                                "bilinear_sample": n},
+          f"semseg fp32 launches {counts['float32']}: want 2 FPS + 2 ball "
+          "query + 2 fused FP + 1 bilinear per forward")
+    launches = {k: counts["bfloat16"][k] + counts["float32"][k]
+                for k in counts["float32"]}
+
+    with torch.no_grad():
+        valid = torch.cat([preds["float32"].model(*r)[1]["proj_valid"]
+                           for r in reqs])
+    share = float(valid.float().mean())
+    print(f"semseg: share of points the camera sees (proj_valid) {share}",
+          flush=True)
+    check(share > 0.0, "semseg: no point projects into the image")
+
+    with ops.use_impl("torch"):
+        plain = [preds["float32"](*r) for r in reqs]
+    fp32_delta = max(float((a - b).abs().max())
+                     for a, b in zip(logp["float32"], plain))
+    print(f"semseg fp32 kernels path vs plain path: max|d logp| "
+          f"{fp32_delta}", flush=True)
+    check(fp32_delta <= 1e-4, f"semseg fp32 kernels vs plain: {fp32_delta} "
+                              "> 1e-4")
+
+    a16, a32 = torch.cat(logp["bfloat16"]), torch.cat(logp["float32"])
+    agree = float((a16.argmax(-1) == a32.argmax(-1)).float().mean())
+    bf16_delta = float((a16 - a32).abs().max())
+    print(f"semseg bf16 vs fp32: per-point argmax agreement {agree}, "
+          f"max|d logp| {bf16_delta}", flush=True)
+    check(agree >= 0.95, f"semseg bf16 vs fp32 argmax agreement {agree} "
+                         "< 0.95")
+
+    rates = {}
+    for dtname, pred in preds.items():
+        ms = cuda_ms(torch, lambda: pred(*reqs[0]), 12, warmup=3)
+        rates[dtname] = {"forward_ms": ms, "clouds_per_s": B / ms * 1e3,
+                         "points_per_s": B * N / ms * 1e3}
+        print(f"serve fusion_sem_seg {dtname}: median forward {ms} ms, "
+              f"{rates[dtname]['clouds_per_s']} clouds/s, "
+              f"{rates[dtname]['points_per_s']} points/s at B={B} x N={N}",
+              flush=True)
+    return {"launches": launches, "launches_by_dtype": counts,
+            "proj_valid_share": share,
             "fp32_kernels_vs_plain": fp32_delta,
             "bf16_vs_fp32": {"argmax_agreement": agree,
                              "max_logp_delta": bf16_delta},
@@ -531,7 +794,8 @@ def train(torch, ops, cuda_kernels, dev):
               flush=True)
         # (b) launches of one step, of a BN refresh and of an eval forward
         want = {"farthest_point_sample": 2, "query_ball_point": 2,
-                "gather_backward": 2, "fused_sa": 0}
+                "gather_backward": 2, "fused_sa": 0, "fused_fp": 0,
+                "bilinear_sample": 0}
         check(per_step == want, f"train {dtname}: launches per step "
                                 f"{per_step}, want {want}")
         refresh = steps.make_bn_refresh_step(
@@ -609,7 +873,10 @@ def train(torch, ops, cuda_kernels, dev):
 
 
 def kernels_line(rows, launches):
-    """One entry per kernel, summed over its path's two shapes."""
+    """One entry per kernel, summed over its path's shapes, in the dtype
+    named (fused SA and fused FP: bf16 serving; gather backward: the f32
+    train step; bilinear: f32, where grid_sample is the yardstick). ms,
+    plain_ms and library_ms are device times per call (torch.profiler)."""
     path = {
         "fps": ("farthest_point_sample", "mm3d_tpu_torch/csrc/fps.cu",
                 "mm3d_tpu/ops/pallas_kernels.py:174", None),
@@ -620,6 +887,11 @@ def kernels_line(rows, launches):
         "gather_backward": ("gather_backward",
                             "mm3d_tpu_torch/csrc/gather_bwd.cu",
                             "mm3d_tpu/ops/pallas_kernels.py:1704", "float32"),
+        "fused_fp": ("fused_fp", "mm3d_tpu_torch/csrc/fused_fp.cu",
+                     "mm3d_tpu/ops/pallas_kernels.py:1584", "bfloat16"),
+        "bilinear_sample": ("bilinear_sample",
+                            "mm3d_tpu_torch/csrc/bilinear.cu",
+                            "mm3d_tpu/ops/pallas_kernels.py:1459", "float32"),
     }
     out = []
     for name, (wrapper, src, replaces, dtname) in path.items():
@@ -633,10 +905,12 @@ def kernels_line(rows, launches):
             "plain_ms": sum(e["plain_ms"] for e in timed),
             "bound_ms": sum(e["bound_ms"] for e in timed),
             "bound_by": max(timed, key=lambda e: e["bound_ms"])["bound_by"],
-            # one PyTorch call computes only the gather backward
-            # (index_add_); FPS, ball query and the fused SA tail have none
+            # one PyTorch call computes the gather backward (index_add_)
+            # and the sampling (grid_sample); FPS, ball query and the fused
+            # SA and FP tails have none
             "library_ms": (sum(e["library_ms"] for e in timed)
-                           if "library_ms" in timed[0] else None)})
+                           if timed[0].get("library_ms") is not None
+                           else None)})
     return out
 
 
@@ -677,11 +951,13 @@ def main():
 
     rows = kernel_checks(torch, ops, geometry, dev)
     served = serve(torch, ops, cuda_kernels, dev)
+    semseg = serve_semseg(torch, ops, cuda_kernels, dev)
     trained = train(torch, ops, cuda_kernels, dev)
-    # each kernel's launches on the main paths: serving (bf16 + fp32) and
-    # one epoch of Trainer.fit (fp32 + bf16)
-    launches = {k: served["launches"][k] + trained["launches"][k]
-                for k in served["launches"]}
+    # each kernel's launches on the main paths: serving fusion_cls and
+    # fusion_sem_seg (bf16 + fp32) and one epoch of Trainer.fit (fp32 +
+    # bf16)
+    launches = {k: served["launches"][k] + semseg["launches"][k]
+                + trained["launches"][k] for k in served["launches"]}
     kernels = kernels_line(rows, launches)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on "
@@ -691,7 +967,8 @@ def main():
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "kernel_checks": rows,
-                   "serve": served, "train": trained, "kernels": kernels},
+                   "serve": served, "serve_fusion_sem_seg": semseg,
+                   "train": trained, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,16 +8,16 @@ Layout (mirrors ``mm3d_tpu``)
 -----------------------------
 ops/       plain PyTorch geometry ops, kernel wrappers, dispatch, kernel build
 csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, fused SA,
-           gather backward)
-models/    nn.Modules: layers, SetAbstraction, image CNN, fusion_cls, losses,
-           registry
+           gather backward, fused FP tail, bilinear image sampling)
+models/    nn.Modules: layers, SetAbstraction, FeaturePropagation, image CNN,
+           fusion_cls, fusion_sem_seg, losses, registry
 data/      synthetic datasets, augmentation, the prefetching input pipeline
 training/  serving (``make_predictor``) and training (``Trainer``, steps,
            optimizer, schedules)
 utils/     flax weight transfer, metrics, profiling on the card
 
-The port serves and trains ``fusion_cls``. Entry points run on the card
-unless the caller asks for the CPU.
+The port serves and trains ``fusion_cls`` and serves ``fusion_sem_seg``.
+Entry points run on the card unless the caller asks for the CPU.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -38,19 +38,6 @@ constexpr int kMaxRows = 50000;  // n ints + the tile fit in 227 KB
 constexpr int kSumWarps = 8;
 constexpr int kUnroll = 4;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // Exclusive block scan of one int per thread; returns the thread's prefix.
 __device__ int block_exclusive_scan(int v, int* warp_tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -169,7 +156,7 @@ sum_kernel(const T* __restrict__ g, const int* __restrict__ row_start,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int c = c0 + lane + 32 * q;
-          v[u][q] = (in && c < C) ? to_f32(row[c]) : 0.f;
+          v[u][q] = (in && c < C) ? to_f(row[c]) : 0.f;
         }
       }
       // add in ascending f: the same order on every launch
@@ -184,7 +171,7 @@ sum_kernel(const T* __restrict__ g, const int* __restrict__ row_start,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = c0 + lane + 32 * q;
-      if (c < C) o[c] = from_f32<T>(acc[q]);
+      if (c < C) o[c] = from_f<T>(acc[q]);
     }
   }
 }

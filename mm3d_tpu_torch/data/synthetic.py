@@ -1,13 +1,14 @@
-"""Synthetic datasets for the ``fusion_cls`` trainer (the port's own copy
-of the parts of ``mm3d_tpu/data/synthetic.py`` it needs).
+"""Synthetic datasets for the fusion models (the port's own copy of the
+parts of ``mm3d_tpu/data/synthetic.py`` it needs).
 
-ModelNet40-shaped clouds (``SyntheticModelNet``) and their multimodal
-pairing with a rendered view and camera calibration
-(``SyntheticMultimodal``). Each class is a fixed parametric primitive
-composition drawn from a seeded RNG, so the task is learnable. Host-side
-numpy, deterministic in (seed, index), and array-for-array identical with
-the JAX package's generators for the same seed (``tests/test_torch_data.py``).
-The part-segmentation and indoor-scene generators come with their slices.
+ModelNet40-shaped clouds (``SyntheticModelNet``), S3DIS-shaped indoor
+blocks (``SyntheticIndoorScene``) and their multimodal pairing with a
+rendered view and camera calibration (``SyntheticMultimodal``). Each class
+is a fixed parametric primitive composition drawn from a seeded RNG, so the
+task is learnable. Host-side numpy, deterministic in (seed, index), and
+array-for-array identical with the JAX package's generators for the same
+seed (``tests/test_torch_data.py``). The part-segmentation generator and the
+whole-room scene of the scene-eval protocol come with their slices.
 """
 
 from __future__ import annotations
@@ -221,6 +222,92 @@ class SyntheticModelNet:
         return out.astype(np.float32), label
 
 
+# ------------------------------------------------------- S3DIS-style semseg
+
+
+@dataclasses.dataclass
+class SyntheticIndoorScene:
+    """S3DIS-shaped semantic-seg blocks: ([npoints, 9], seg [npoints]).
+
+    9-dim features: xyz (block-local), rgb in [0,1], normalized room xyz.
+    13 classes: floor/ceiling/wall + 10 "furniture" primitive classes.
+    """
+
+    npoints: int = 4096
+    size: int = 512
+    seed: int = 0
+    split: str = "train"
+    num_classes: int = 13
+
+    def __getitem__(self, index):
+        rng = np.random.RandomState(
+            (self.seed * 3_000_017 + _split_offset(self.split) + index)
+            % (2**32))
+        xyz, rgb, seg, room_max = _gen_room(rng, self.npoints,
+                                            self.num_classes, self.seed)
+        norm_xyz = xyz / room_max
+        local = xyz - xyz.mean(0, keepdims=True)
+        feats = np.concatenate([local, rgb, norm_xyz], -1)
+        return feats.astype(np.float32), seg
+
+    def __len__(self):
+        return self.size
+
+
+def _gen_room(rng, n, num_classes, seed):
+    """One synthetic indoor room: (xyz [n,3], rgb [n,3], seg [n],
+    room_max [3]): floor, ceiling and walls, then 3-6 furniture primitives
+    of classes 3..12 standing on the floor."""
+    room = rng.uniform(4.0, 8.0, 2)  # W, D
+    H = rng.uniform(2.5, 3.5)
+    quota = [int(n * 0.25), int(n * 0.15), int(n * 0.25)]
+    pts, lbl, col = [], [], []
+    # floor(0), ceiling(1), wall(2)
+    f = np.stack([rng.uniform(0, room[0], quota[0]),
+                  rng.uniform(0, room[1], quota[0]),
+                  np.zeros(quota[0])], -1)
+    c = np.stack([rng.uniform(0, room[0], quota[1]),
+                  rng.uniform(0, room[1], quota[1]),
+                  np.full(quota[1], H)], -1)
+    nw = quota[2]
+    side = rng.randint(0, 4, nw)
+    wx = rng.uniform(0, room[0], nw); wy = rng.uniform(0, room[1], nw)
+    wz = rng.uniform(0, H, nw)
+    w = np.stack([np.where(side < 2, wx, np.where(side == 2, 0, room[0])),
+                  np.where(side < 2, np.where(side == 0, 0, room[1]), wy),
+                  wz], -1)
+    for arr, klass, base in ((f, 0, 0.45), (c, 1, 0.85), (w, 2, 0.65)):
+        pts.append(arr)
+        lbl.append(np.full(len(arr), klass, np.int32))
+        col.append(np.clip(base + 0.1 * rng.randn(len(arr), 3), 0, 1))
+    # furniture: classes 3..12 from seeded primitives on the floor
+    remaining = n - sum(quota)
+    n_obj = rng.randint(3, 7)
+    counts = np.full(n_obj, remaining // n_obj)
+    counts[: remaining - counts.sum()] += 1
+    for j in range(n_obj):
+        klass = 3 + rng.randint(num_classes - 3)
+        prng = np.random.RandomState(seed + 91 * klass)
+        kind = klass % len(_PRIMS)
+        params = _class_params(prng, kind)
+        p, _ = _sample_primitive(rng, kind, int(counts[j]), params)
+        p = p * 0.4
+        p = p - p.min(0, keepdims=True)
+        p += np.array([rng.uniform(0.5, room[0] - 0.5),
+                       rng.uniform(0.5, room[1] - 0.5), 0.0])
+        pts.append(p)
+        lbl.append(np.full(int(counts[j]), klass, np.int32))
+        hue = np.array([klass / num_classes, 1 - klass / num_classes, 0.5])
+        col.append(np.clip(hue + 0.05 * rng.randn(int(counts[j]), 3), 0, 1))
+    xyz = np.concatenate(pts, 0).astype(np.float32)
+    seg = np.concatenate(lbl, 0)
+    rgb = np.concatenate(col, 0).astype(np.float32)
+    perm = rng.permutation(n)
+    xyz, seg, rgb = xyz[perm], seg[perm], rgb[perm]
+    room_max = np.array([room[0], room[1], H], np.float32)
+    return xyz, rgb, seg, room_max
+
+
 # --------------------------------------------------------------- multimodal
 
 
@@ -316,3 +403,16 @@ class SyntheticMultimodal:
         if seg is not None:
             out["seg"] = seg.astype(np.int32)
         return out
+
+
+def semseg_request(batch: int, npoint: int = 2048, hw=(64, 64),
+                   seed: int = 0) -> list:
+    """One fusion_sem_seg request: ``batch`` S3DIS-style test blocks of
+    ``npoint`` 9-dim points with their rendered views and cameras, as numpy
+    [points, image, K, R, t]."""
+    ds = SyntheticMultimodal(
+        base=SyntheticIndoorScene(npoints=npoint, size=batch, seed=seed,
+                                  split="test"), hw=hw, seed=seed)
+    samples = [ds[i] for i in range(batch)]
+    return [np.stack([s[k] for s in samples])
+            for k in ("points", "image", "K", "R", "t")]

@@ -1,4 +1,5 @@
-"""Model layer of the port: layers, SetAbstraction, image CNN, fusion, losses."""
+"""Model layer of the port: layers, SetAbstraction, FeaturePropagation, image
+CNN, fusion models, losses."""
 
 from mm3d_tpu_torch.models import (fusion, image, layers, pointnet, pointnet2,
                                    registry)

@@ -1,4 +1,4 @@
-"""PointNet++ set abstraction (counterpart of ``mm3d_tpu/models/pointnet2.py``).
+"""PointNet++ blocks (counterpart of ``mm3d_tpu/models/pointnet2.py``).
 
 The branches of ``SetAbstraction`` that ``fusion_cls`` serves and trains:
 
@@ -11,11 +11,23 @@ The branches of ``SetAbstraction`` that ``fusion_cls`` serves and trains:
   takes it; bf16 training recentres in f32 from the f32 inputs captured
   before the cast (``:170-178,278-292``).
 
+``FeaturePropagation`` (``:416-513``), the FP decoder block of the dense
+trunk, project-first:
+
+* fused (``:479-496``), eval (``_want_fused_fp``): BN folds to an affine map,
+  so 3-NN, inverse-distance interpolation, the dense-side term and relu run
+  as one kernel (``ops.fused_fp``), in every dtype;
+* unfused (``:497-509``): three_nn, the interpolation (whose gather's
+  backward is the gather-backward kernel), skip, bias, BN, relu. Training
+  takes it; on the kernel path it raises until the three_nn kernel lands
+  with the fusion_sem_seg training slice;
+* M == 1 broadcasts the single sparse row.
+
 Train or eval is the module's ``training`` flag. The dtype casts sit where
 the JAX module puts them. Still to be ported in later slices: the
-point-shard branch (``:183-230``), kNN grouping (``:245-259``) and the
-``MM3D_BF16_DEBUG`` knob (``:30-36``); ``SetAbstractionMsg`` and
-``FeaturePropagation`` come with the FP-block slice.
+point-shard branches (``:183-230``, ``:470-478``), kNN grouping
+(``:245-259``), the ``MM3D_BF16_DEBUG`` knob (``:30-36``),
+``project_first=False`` and ``SetAbstractionMsg``.
 """
 
 from __future__ import annotations
@@ -41,6 +53,12 @@ def _want_fused_sa(train: bool, mlp, dtype) -> bool:
     if dtype == torch.bfloat16:
         return True
     return dispatch.get_impl() == "cuda"
+
+
+def _want_fused_fp(train: bool) -> bool:
+    """Take the fused FP-tail kernel? Eval only, in every dtype, as in the
+    JAX package."""
+    return not train
 
 
 def _fps_start(train: bool, xyz: torch.Tensor,
@@ -155,3 +173,78 @@ class SetAbstraction(nn.Module):
         if self.mlp_rest is not None:
             h = self.mlp_rest(h, bn_momentum, f32=f32)
         return new_xyz, h.amax(dim=2)
+
+
+class FeaturePropagation(nn.Module):
+    """FP decoder block: 3-NN inverse-distance upsample + skip + MLP.
+
+    Project-first: the interpolation is linear, so the first layer runs on
+    the M sparse points, ``interp(f2 @ W_f2) + f1 @ W_skip + b``.
+    ``skip_channels`` counts the dense-side features (0 for none),
+    ``sparse_channels`` the sparse-side ones. Parameters follow the flax
+    tree: ``proj_kernel`` [skip + sparse, C1] with rows [skip; interpolated],
+    ``proj_bias``, ``proj_bn`` and ``mlp_rest``."""
+
+    def __init__(self, skip_channels: int, sparse_channels: int,
+                 mlp: Sequence[int], dtype=None):
+        super().__init__()
+        self.mlp_widths = tuple(mlp)
+        self.dtype = dtype
+        c1 = self.mlp_widths[0]
+        self.proj_kernel = nn.Parameter(
+            torch.empty(skip_channels + sparse_channels, c1))
+        self.proj_bias = nn.Parameter(torch.zeros(c1))
+        self.proj_bn = BatchNorm(c1, dtype=dtype)
+        self.mlp_rest = (SharedMLP(c1, self.mlp_widths[1:], dtype=dtype)
+                         if len(self.mlp_widths) > 1 else None)
+        self.init_(None)
+
+    def init_(self, g):
+        lecun_normal_(self.proj_kernel, self.proj_kernel.shape[0], g)
+        with torch.no_grad():
+            self.proj_bias.zero_()
+
+    def forward(self, xyz1: torch.Tensor, xyz2: torch.Tensor,
+                feats1: Optional[torch.Tensor], feats2: torch.Tensor,
+                bn_momentum: float = 0.1) -> torch.Tensor:
+        """xyz1 [B,N,3] dense targets, xyz2 [B,M,3] sparse sources (f32),
+        feats1 [B,N,D1] or None, feats2 [B,M,D2] -> [B,N,C_last]."""
+        B, N, _ = xyz1.shape
+        M = xyz2.shape[1]
+        c1 = self.mlp_widths[0]
+        c2 = feats2.shape[-1]
+        k2, bias = self.proj_kernel, self.proj_bias
+        if self.dtype is not None:
+            feats2, k2 = feats2.to(self.dtype), k2.to(self.dtype)
+            bias = bias.to(self.dtype)
+        # rows of W0: [skip channels; interpolated channels]
+        k_skip, k_interp = k2[:-c2], k2[-c2:]
+        pre = torch.matmul(feats2, k_interp)  # [B,M,C1], on the sparse set
+        if _want_fused_fp(self.training) and M > 1:
+            # eval: BN's per-channel scale commutes with the interpolation,
+            # so the kernel sees pre*A and the folded dense-side term
+            A, C = self.proj_bn.fold()
+            skip_t = bias.to(pre.dtype).expand(B, N, c1)
+            if feats1 is not None:
+                skip_t = torch.matmul(feats1.to(pre.dtype), k_skip) + skip_t
+            h = ops.fused_fp(xyz1, xyz2, pre * A, skip_t * A + C)
+        else:
+            if M == 1:
+                h = pre.expand(B, N, c1)
+            else:
+                if dispatch.resolve(xyz1) == "cuda":
+                    raise NotImplementedError(
+                        "FeaturePropagation's unfused branch needs the "
+                        "three_nn kernel, which comes with the "
+                        "fusion_sem_seg training slice")
+                dists, idx = ops.three_nn_torch(xyz1, xyz2)
+                weight = ops.interpolation_weights(dists)
+                h = ops.three_interpolate_torch(pre, idx,
+                                                weight.to(pre.dtype))
+            if feats1 is not None:
+                h = h + torch.matmul(feats1.to(pre.dtype), k_skip)
+            h = h + bias
+            h = torch.relu(self.proj_bn(h, momentum=bn_momentum))
+        if self.mlp_rest is not None:
+            h = self.mlp_rest(h, bn_momentum)
+        return h

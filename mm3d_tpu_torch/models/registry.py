@@ -1,8 +1,9 @@
 """Model registry: config name -> (module builder, loss, task metadata).
 
-Counterpart of ``mm3d_tpu/models/registry.py``. Only ``fusion_cls`` is
-registered in this slice; the other configs of the JAX registry join as
-their modules are ported.
+Counterpart of ``mm3d_tpu/models/registry.py``. The fusion configs are
+registered (``fusion_cls``, config 4, and ``fusion_sem_seg``, config 5, each
+with its attention-head variant); the other configs of the JAX registry
+join as their modules are ported.
 """
 
 from __future__ import annotations
@@ -52,3 +53,13 @@ def available() -> Dict[str, ModelSpec]:
 
 register(ModelSpec("fusion_cls", "fusion_cls", fu.FusionCls,
                    pn.pointnet_loss, default_npoint=1024, config_id=4))
+register(ModelSpec(
+    "fusion_cls_attention", "fusion_cls",
+    lambda **kw: fu.FusionCls(fusion="attention", **kw), pn.pointnet_loss,
+    default_npoint=1024))
+register(ModelSpec("fusion_sem_seg", "fusion_semseg", fu.FusionSemSeg,
+                   pn.pointnet_loss, default_npoint=2048, config_id=5))
+register(ModelSpec(
+    "fusion_sem_seg_attention", "fusion_semseg",
+    lambda **kw: fu.FusionSemSeg(fusion="attention", **kw), pn.pointnet_loss,
+    default_npoint=2048))

@@ -13,7 +13,12 @@ farthest_point_sample  csrc/fps.cu                     geometry.fps_torch
 query_ball_point       csrc/ball_query.cu (+ .cuh)     geometry.ball_query_torch
 fused_sa               csrc/fused_sa.cu                fused_sa_torch (here)
 gather_backward        csrc/gather_bwd.cu              gather_backward_torch
+fused_fp               csrc/fused_fp.cu (+ three_nn)   fused_fp_torch (here)
+bilinear_sample        csrc/bilinear.cu                bilinear_sample_torch
 =====================  ==============================  ========================
+
+``bilinear_sample`` and its twin are also the public names of
+``ops.projection``.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch
 
 from mm3d_tpu_torch.ops import _build, dispatch
 from mm3d_tpu_torch.ops.geometry import (_start_vector, ball_query_torch,
-                                         fps_torch, index_points)
+                                         fps_torch, index_points,
+                                         three_nn_torch)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -36,6 +42,9 @@ _SIGNATURES = {
     "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
     "mm3d_gather_bwd": ("gather_bwd", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
     "mm3d_gather_bwd_max_rows": ("gather_bwd", []),
+    "mm3d_fused_fp": ("fused_fp", [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
+    "mm3d_fused_fp_max_sparse": ("fused_fp", []),
+    "mm3d_bilinear": ("bilinear", [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 
@@ -277,7 +286,172 @@ def gather_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 
 gather_backward.launches = 0
 
-KERNELS = (farthest_point_sample, query_ball_point, fused_sa, gather_backward)
+# ------------------------------------------------------ fused FP tail
+
+
+def fused_fp_torch(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
+                   skip: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fused FP kernel -> [B,N,C] in pre's dtype.
+
+    relu(rnd(sum_k w_k pre[idx_k]) + skip) over the three nearest sparse
+    points (``three_nn_torch``), with r_k = 1/(d_k + 1e-8) and
+    w_k = rnd(r_k * (1 / sum r)): the TPU kernel's multiply by the
+    reciprocal, not the composition's divide. rnd() rounds to pre's dtype:
+    in bf16 the weights are rounded, the products summed in f32 and the sum
+    rounded before the bf16 skip add, as in the TPU kernel."""
+    dt = pre.dtype
+    acc_dt = torch.promote_types(dt, torch.float32)
+    d, idx = three_nn_torch(xyz1, xyz2)
+    r = 1.0 / (d + 1e-8)
+    inv = 1.0 / ((r[..., 0] + r[..., 1]) + r[..., 2])
+    w = (r * inv[..., None]).to(dt).to(acc_dt)
+    g = index_points(pre, idx).to(acc_dt)  # [B,N,3,C]
+    acc = (w[..., 0:1] * g[:, :, 0] + w[..., 1:2] * g[:, :, 1]
+           + w[..., 2:3] * g[:, :, 2])
+    return torch.relu(acc.to(dt) + skip.to(dt))
+
+
+def _vec_ok(C: int, *ts: torch.Tensor) -> int:
+    """1 if C channels span whole 16-byte moves and every pointer is
+    16-byte aligned (the kernels' vector path), else 0."""
+    per = 16 // ts[0].element_size()
+    return int(C % per == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def fused_fp(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
+             skip: torch.Tensor) -> torch.Tensor:
+    """Fused FP tail: relu(three_interpolate(pre) + skip) in one kernel.
+
+    Args:
+      xyz1 [B,N,3] f32 dense targets; xyz2 [B,M,3] f32 sparse sources,
+        3 <= M.
+      pre [B,M,C] bf16 or f32: projected sparse features, BN scale folded.
+      skip [B,N,C]: the dense-side term (skip projection + bias, folded);
+        cast to pre's dtype.
+    Returns [B,N,C] in pre's dtype."""
+    if dispatch.resolve(pre) == "torch":
+        return fused_fp_torch(xyz1, xyz2, pre, skip)
+    dev, dt = pre.device, pre.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused_fp takes bf16 or f32 features, got {dt}")
+    xyz1 = _f32_points("xyz1", xyz1, dev)
+    xyz2 = _f32_points("xyz2", xyz2, dev)
+    B, N, _ = xyz1.shape
+    M, C = xyz2.shape[1], pre.shape[-1]
+    if (xyz2.shape[0] != B or pre.shape != (B, M, C)
+            or skip.shape != (B, N, C)):
+        raise ValueError(
+            f"fused_fp: inconsistent shapes xyz1 {tuple(xyz1.shape)}, xyz2 "
+            f"{tuple(xyz2.shape)}, pre {tuple(pre.shape)}, skip "
+            f"{tuple(skip.shape)}")
+    if skip.device != dev:
+        raise ValueError(f"skip is on {skip.device}, expected {dev}")
+    if M < 3:
+        raise ValueError(f"fused_fp needs at least 3 sparse points, got {M}")
+    limit = _fn("mm3d_fused_fp_max_sparse")()
+    if M > limit:
+        raise ValueError(f"fused_fp takes at most {limit} sparse points, "
+                         f"got {M}")
+    pre = pre.contiguous()
+    skip = skip.to(dt).contiguous()
+    out = torch.empty((B, N, C), dtype=dt, device=dev)
+    if B * N * C == 0:
+        return out
+    _launch("mm3d_fused_fp", int(dt == torch.bfloat16),
+            _vec_ok(C, pre, skip, out), _ptr(xyz1), _ptr(xyz2), _ptr(pre),
+            _ptr(skip), _ptr(out), B, N, M, C, _stream(pre))
+    fused_fp.launches += 1
+    return out
+
+
+fused_fp.launches = 0
+
+
+# ------------------------------------------------ bilinear image sampling
+
+
+def bilinear_sample_torch(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the bilinear kernel: feat [B,H,W,C], uv [B,N,2] pixel
+    coordinates -> [B,N,C] in feat's dtype, zero outside the frame.
+
+    f32 (and f64): ``projection._bilinear_sample_jax``'s lerp, top and
+    bottom rows in u first, then v. bf16: the TPU kernel's rounding, each
+    corner weight rounded to bf16, the products summed in f32 and the sum
+    rounded to bf16. An outside corner reads the clamped in-frame pixel and
+    is zeroed by its mask (f32) or weight (bf16), as in the JAX reference."""
+    B, H, W, C = feat.shape
+    dt = feat.dtype
+    u, v = uv[..., 0], uv[..., 1]
+    x0, y0 = torch.floor(u), torch.floor(v)
+    du, dv = u - x0, v - y0
+    flat = feat.reshape(B, H * W, C)
+    vals, inside = [], []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        x, y = x0 + dx, y0 + dy
+        inside.append((x >= 0) & (x < W) & (y >= 0) & (y < H))
+        idx = (y.clamp(0, H - 1).to(torch.int32) * W
+               + x.clamp(0, W - 1).to(torch.int32))
+        vals.append(index_points(flat, idx))  # [B,N,C]
+    if dt == torch.bfloat16:
+        omdu, omdv = 1 - du, 1 - dv
+        acc = None
+        for w, c, m in zip((omdu * omdv, du * omdv, omdu * dv, du * dv), vals,
+                           inside):
+            w = torch.where(m, w, torch.zeros_like(w)).to(dt).float()
+            term = w[..., None] * c.float()
+            acc = term if acc is None else acc + term
+        return acc.to(dt)
+    c00, c10, c01, c11 = (c * m[..., None].to(c.dtype)
+                          for c, m in zip(vals, inside))
+    du, dv = du[..., None], dv[..., None]
+    top = c00 * (1 - du) + c10 * du
+    bot = c01 * (1 - du) + c11 * du
+    return (top * (1 - dv) + bot * dv).to(dt)
+
+
+def bilinear_sample(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling of feat [B,H,W,C] (bf16 or f32) at uv [B,N,2] f32
+    pixel coordinates -> [B,N,C] in feat's dtype, zero outside the frame.
+
+    The forward only: the kernel has no backward yet (it comes with the
+    fusion_sem_seg training slice), so on the kernel path this raises when
+    a gradient is wanted for feat or uv rather than give a zero one."""
+    if dispatch.resolve(feat) == "torch":
+        return bilinear_sample_torch(feat, uv)
+    if torch.is_grad_enabled() and (feat.requires_grad or uv.requires_grad):
+        raise RuntimeError(
+            "bilinear_sample: the kernel has no backward yet (it comes with "
+            "the fusion_sem_seg training slice); call it under "
+            "torch.no_grad() or on tensors that need no gradient")
+    dev, dt = feat.device, feat.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"bilinear_sample takes bf16 or f32 maps, got {dt}")
+    if feat.dim() != 4:
+        raise ValueError(f"feat must be [B,H,W,C], got {tuple(feat.shape)}")
+    B, H, W, C = feat.shape
+    if uv.device != dev:
+        raise ValueError(f"uv is on {uv.device}, expected {dev}")
+    if uv.dtype != torch.float32:
+        raise TypeError(f"uv must be float32, got {uv.dtype}")
+    if uv.dim() != 3 or uv.shape[0] != B or uv.shape[-1] != 2:
+        raise ValueError(f"uv must be [{B},N,2], got {tuple(uv.shape)}")
+    N = uv.shape[1]
+    feat = feat.contiguous()
+    uv = uv.contiguous()
+    out = torch.empty((B, N, C), dtype=dt, device=dev)
+    if B * N * C == 0 or H * W == 0:
+        return out.zero_()
+    _launch("mm3d_bilinear", int(dt == torch.bfloat16),
+            _vec_ok(C, feat, out), _ptr(feat), _ptr(uv), _ptr(out), B, H,
+            W, N, C, _stream(feat))
+    bilinear_sample.launches += 1
+    return out
+
+
+bilinear_sample.launches = 0
+
+KERNELS = (farthest_point_sample, query_ball_point, fused_sa, gather_backward,
+           fused_fp, bilinear_sample)
 
 
 def reset_launches() -> None:

@@ -1,9 +1,10 @@
 """Plain PyTorch geometry ops (counterpart of ``mm3d_tpu/ops/geometry.py``).
 
 These are the plain versions of the port's kernels: ``fps_torch`` of the FPS
-kernel and ``ball_query_torch`` of the ball-query kernel. They run on any
-device and are the semantic reference the kernels are held to, bit-exactly
-for the index outputs. Their rounding is spelled out: dot products over the
+kernel, ``ball_query_torch`` of the ball-query kernel and ``three_nn_torch``
+of the 3-NN selection inside the fused FP kernel. They run on any device and
+are the semantic reference the kernels are held to, bit-exactly for the
+index outputs. Their rounding is spelled out: dot products over the
 three coordinates are summed left to right as separate multiplies and adds,
 so no FMA contraction and no TF32 matmul can move a boundary decision.
 
@@ -145,6 +146,34 @@ def ball_query_torch(radius: float, nsample: int, xyz: torch.Tensor,
         idx = torch.cat([idx, pad], dim=-1)
     out = torch.where(idx == N, idx[..., :1], idx)
     return torch.where(out == N, torch.zeros_like(out), out)
+
+
+def three_nn_torch(xyz1: torch.Tensor, xyz2: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3 nearest sparse points of each dense point (twin of ``_three_nn_jax``).
+
+    xyz1 [B,N,3] dense, xyz2 [B,M,3] sparse, M >= 3 -> (d2 [B,N,3] ascending,
+    idx [B,N,3] int32). d2 is ``square_distance(xyz1, xyz2)``, not clamped
+    at 0; ties go to the lower index, as ``lax.top_k`` orders them (a stable
+    sort)."""
+    sqr = square_distance(xyz1, xyz2)  # [B,N,M]
+    d, idx = torch.sort(sqr, dim=-1, stable=True)
+    return d[..., :3], idx[..., :3].to(torch.int32)
+
+
+def interpolation_weights(dists: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance weights from squared 3-NN distances (eps 1e-8)."""
+    recip = 1.0 / (dists + 1e-8)
+    return recip / recip.sum(dim=-1, keepdim=True)
+
+
+def three_interpolate_torch(points: torch.Tensor, idx: torch.Tensor,
+                            weight: torch.Tensor) -> torch.Tensor:
+    """points [B,M,C], idx/weight [B,N,3] -> [B,N,C]: sum_k w_k points[idx_k].
+
+    The gather is ``index_points``, so its backward is the gather-backward
+    kernel."""
+    return (index_points(points, idx) * weight[..., None]).sum(dim=2)
 
 
 def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]

@@ -2,9 +2,12 @@
 
 ``make_predictor`` builds the eval-mode forward of a registered model on
 the card, optionally in the bf16 serving mode (``dtype=torch.bfloat16``):
-network compute runs in bf16 while geometry (FPS, ball query) stays f32, so
-neighbour indices are unchanged. ``agreement`` measures prediction drift
-between two predictors.
+network compute runs in bf16 while geometry (FPS, ball query, 3-NN,
+projection) stays f32, so neighbour indices are unchanged. It serves any
+registered model with the model's own inputs: ``fusion_cls`` and
+``fusion_sem_seg`` take (points, image, K, R, t) and return class
+log-probabilities, per cloud [B, classes] or per point [B, N, classes].
+``agreement`` measures prediction drift between two predictors.
 
 The fp32 mode is strict fp32 only if the caller turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32`` and

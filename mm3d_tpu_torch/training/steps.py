@@ -21,7 +21,7 @@ from mm3d_tpu_torch.utils import metrics as M
 _LATER = {"classification": "the PointNet++ classification slice",
           "partseg": "the FP-block slice",
           "semseg": "the FP-block slice",
-          "fusion_semseg": "the fusion_semseg slice"}
+          "fusion_semseg": "the fusion_sem_seg training slice"}
 
 
 def _check_task(task: str) -> None:

@@ -1,12 +1,16 @@
 """Where the time of serving and of training goes on the card.
 
-Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the ``fusion_cls``
-eval forward served by ``make_predictor`` (``--mode serve``) and of one
-train step of ``steps.make_train_step`` (``--mode train``):
+Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the eval forward
+served by ``make_predictor`` (``--mode serve``, ``fusion_cls`` or
+``fusion_sem_seg``) and of one ``fusion_cls`` train step of
+``steps.make_train_step`` (``--mode train``):
 
-* ``stage_times`` -- CUDA events around each stage of the model (SA1, SA2,
-  SA3, the image CNN), recorded by forward hooks; the rest of the forward
-  (concat, FC head, log-softmax) is the total less the stages;
+* ``stage_times`` -- CUDA events at the start and end of each stage of the
+  model, recorded by forward hooks: for ``fusion_cls`` SA1, SA2, SA3 and the
+  image CNN, the rest of the forward (concat, FC head, log-softmax) being
+  the total less the stages; for ``fusion_sem_seg`` SA1, SA2, FP2, FP1, the
+  image CNN, projection + sampling (from the CNN's end to the head's start,
+  the fusion included) and the head (head MLP to log-softmax);
 * ``train_stage_times`` -- the same for the train step's forward, plus its
   backward: an event where each stage's backward starts (a backward
   pre-hook, when the gradient of the stage's output is ready), each
@@ -20,12 +24,15 @@ train step of ``steps.make_train_step`` (``--mode train``):
 Run on one card from the repository root::
 
     python -m mm3d_tpu_torch.utils.profiling [--mode serve|train]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--model fusion_cls|fusion_sem_seg]
 
-Serving takes B=128 clouds of 1024 points with 64x64 images, training B=24
-(random seeded weights and inputs). It prints one JSON line and writes it to
-``profile_<mode>_<dtype>.json`` in the ``--out`` directory. It fails without
-a card.
+Serving ``fusion_cls`` takes B=128 clouds of 1024 points with 64x64 images
+and 40 classes; serving ``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks
+of 2048 points with their 64x64 rendered views and cameras and 13 classes;
+training B=24 (random seeded weights with non-trivial BN statistics, seeded
+inputs). It prints one JSON line and writes it to
+``profile_<mode>_<model>_<dtype>.json`` in the ``--out`` directory. It fails
+without a card.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import json
 import os
 import subprocess
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -48,18 +55,19 @@ def _event():
 
 
 def stage_times(model: torch.nn.Module, call: Callable[[], object],
-                reps: int = 10) -> Dict[str, float]:
-    """Median device ms of each stage of a FusionCls forward, and 'total'."""
-    stages = {"sa1": model.point_trunk.sa1, "sa2": model.point_trunk.sa2,
-              "sa3": model.point_trunk.sa3, "image": model.image_trunk}
-    marks: Dict[str, List[list]] = {n: [] for n in stages}
+                spans: Dict[str, tuple], reps: int = 10) -> Dict[str, float]:
+    """Median device ms of each span of a forward, 'total' and 'rest'.
+
+    ``spans``: name -> (start, end), each point a (module, "start" | "end")
+    pair: a forward pre-hook or forward hook of the module records a CUDA
+    event there. 'rest' is the total less the spans."""
+    points = {p for span in spans.values() for p in span}
+    marks: Dict[tuple, list] = {p: [] for p in points}
     handles = []
-    for name, mod in stages.items():
-        handles.append(mod.register_forward_pre_hook(
-            lambda m, a, name=name: marks[name].append([_event(), None])))
-        handles.append(mod.register_forward_hook(
-            lambda m, a, o, name=name: marks[name][-1].__setitem__(
-                1, _event())))
+    for mod, kind in points:
+        rec = (lambda *a, p=(mod, kind): marks[p].append(_event()))
+        handles.append(mod.register_forward_pre_hook(rec) if kind == "start"
+                       else mod.register_forward_hook(rec))
     totals = []
     try:
         call()  # warm-up
@@ -73,11 +81,29 @@ def stage_times(model: torch.nn.Module, call: Callable[[], object],
     finally:
         for h in handles:
             h.remove()
-    out = {n: float(np.median([a.elapsed_time(b) for a, b in v]))
-           for n, v in marks.items()}
+    out = {n: float(np.median([a.elapsed_time(b) for a, b in
+                               zip(marks[s], marks[e])]))
+           for n, (s, e) in spans.items()}
     out["total"] = float(np.median([a.elapsed_time(b) for a, b in totals]))
-    out["rest"] = out["total"] - sum(out[n] for n in stages)
+    out["rest"] = out["total"] - sum(out[n] for n in spans)
     return out
+
+
+def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
+    """The stages ``stage_times`` reads for a FusionCls or FusionSemSeg."""
+    def whole(m):
+        return ((m, "start"), (m, "end"))
+
+    pt = model.point_trunk
+    if hasattr(pt, "fp1"):  # FusionSemSeg
+        return {"sa1": whole(pt.sa1), "sa2": whole(pt.sa2),
+                "fp2": whole(pt.fp2), "fp1": whole(pt.fp1),
+                "image": whole(model.image_trunk),
+                "sampling": ((model.image_trunk, "end"),
+                             (model.head_mlp, "start")),
+                "head": ((model.head_mlp, "start"), (model, "end"))}
+    return {"sa1": whole(pt.sa1), "sa2": whole(pt.sa2),
+            "sa3": whole(pt.sa3), "image": whole(model.image_trunk)}
 
 
 def train_stage_times(model: torch.nn.Module,
@@ -151,9 +177,9 @@ def train_stage_times(model: torch.nn.Module,
     return out
 
 
-def kernel_table(call: Callable[[], object], reps: int = 3,
-                 top: int = 15) -> dict:
-    """Device time by kernel over ``reps`` calls, and the idle share."""
+def _profile(call: Callable[[], object], reps: int):
+    """torch.profiler over ``reps`` calls after one warm-up -> (the device
+    events, host wall us)."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -165,14 +191,32 @@ def kernel_table(call: Callable[[], object], reps: int = 3,
             call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # device work only: not the ranges that annotate host calls on the
+    # device timeline (e.g. "Optimizer.step#Adam.step")
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return events, wall_us
+
+
+def device_ms(call: Callable[[], object], reps: int = 10) -> float:
+    """Device time per call: the summed durations of the kernels and copies
+    one call puts on the card (torch.profiler, mean of ``reps`` calls), the
+    host's launch time excluded. Raises if the profiler saw no device
+    work."""
+    events, _ = _profile(call, reps)
+    if not events:
+        raise RuntimeError("device_ms: the profiler recorded no device work")
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+
+
+def kernel_table(call: Callable[[], object], reps: int = 3,
+                 top: int = 15) -> dict:
+    """Device time by kernel over ``reps`` calls, and the idle share."""
+    events, wall_us = _profile(call, reps)
     by_name: Dict[str, list] = {}
     spans = []
-    for e in prof.events():
-        # device kernels only: not the ranges that annotate host calls on
-        # the device timeline (e.g. "Optimizer.step#Adam.step")
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
+    for e in events:
         spans.append((e.time_range.start, e.time_range.end))
         row = by_name.setdefault(e.name, [0.0, 0])
         row[0] += e.time_range.elapsed_us()
@@ -202,21 +246,40 @@ def _clouds(r: np.random.RandomState, B: int) -> np.ndarray:
     return pts
 
 
-def _serve(dtype, batch: int) -> dict:
+def nontrivial_bn(model: torch.nn.Module, seed: int = 1) -> None:
+    """Random BN statistics, so the eval folds do real work."""
+    from mm3d_tpu_torch.models.layers import BatchNorm
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.normal_(0.0, 0.1, generator=g)
+                m.var.uniform_(0.5, 1.5, generator=g)
+
+
+def _serve(model_name: str, dtype, batch: int) -> dict:
+    from mm3d_tpu_torch.data.synthetic import semseg_request
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
 
-    model = init_params(get_model("fusion_cls").builder(num_class=40), 0)
-    pred = make_predictor("fusion_cls", model.state_dict(), device="cuda",
-                          num_class=40, dtype=dtype)
+    ncls = 13 if model_name == "fusion_sem_seg" else 40
+    model = init_params(get_model(model_name).builder(num_class=ncls), 0)
+    nontrivial_bn(model)
+    pred = make_predictor(model_name, model.state_dict(), device="cuda",
+                          num_class=ncls, dtype=dtype)
     r = np.random.RandomState(0)
-    inputs = [torch.from_numpy(a).cuda() for a in (
-        _clouds(r, batch), r.rand(batch, 64, 64, 3).astype(np.float32))]
+    if model_name == "fusion_sem_seg":
+        arrays = semseg_request(batch)
+    else:
+        arrays = [_clouds(r, batch), r.rand(batch, 64, 64, 3).astype(
+            np.float32)]
+    inputs = [torch.from_numpy(a).cuda() for a in arrays]
 
     def call():
         return pred(*inputs)
 
-    return {"stage_ms": stage_times(pred.model, call),
+    return {"stage_ms": stage_times(pred.model, call,
+                                    serve_spans(pred.model)),
             "profile": kernel_table(call)}
 
 
@@ -253,10 +316,14 @@ def _train(dtype, batch: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
+    p.add_argument("--model", choices=("fusion_cls", "fusion_sem_seg"),
+                   default="fusion_cls",
+                   help="the served model (training: fusion_cls only)")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
     p.add_argument("--batch", type=int, default=None,
-                   help="default: 128 serving, 24 training")
+                   help="default: 128 serving fusion_cls, 16 serving "
+                        "fusion_sem_seg, 24 training")
     p.add_argument("--out", default="chiprun_out")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -267,14 +334,20 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    if args.mode == "train" and args.model != "fusion_cls":
+        raise SystemExit("profiling: training is ported for fusion_cls only")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
-    batch = args.batch or (128 if args.mode == "serve" else 24)
-    run = _serve if args.mode == "serve" else _train
-    result = {"card": card, "mode": args.mode, "dtype": args.dtype,
-              "batch": batch, **run(dtype, batch)}
+    if args.mode == "serve":
+        batch = args.batch or (16 if args.model == "fusion_sem_seg" else 128)
+        run = _serve(args.model, dtype, batch)
+    else:
+        batch = args.batch or 24
+        run = _train(dtype, batch)
+    result = {"card": card, "mode": args.mode, "model": args.model,
+              "dtype": args.dtype, "batch": batch, **run}
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_{args.mode}_{args.dtype}.json"),
-              "w") as f:
+    name = f"profile_{args.mode}_{args.model}_{args.dtype}.json"
+    with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
     return 0

@@ -128,6 +128,34 @@ def test_synthetic_multimodal_matches_jax(split, normals):
             assert np.asarray(g[k]).dtype == np.asarray(w[k]).dtype, k
 
 
+@pytest.mark.parametrize("split,seed", [("train", 0), ("test", 4)])
+def test_synthetic_indoor_scene_matches_jax(split, seed):
+    kw = dict(npoints=512, size=8, seed=seed, split=split)
+    want, got = jsyn.SyntheticIndoorScene(**kw), syn.SyntheticIndoorScene(**kw)
+    assert len(got) == len(want) == 8
+    for i in (0, 7):
+        (wf, ws), (gf, gs) = want[i], got[i]
+        assert gf.shape == (512, 9) and gf.dtype == wf.dtype == np.float32
+        np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_array_equal(gs, ws)
+        assert gs.dtype == ws.dtype
+
+
+def test_synthetic_multimodal_indoor_matches_jax():
+    """The semseg pairing: 9-dim block, rendered view, camera, seg labels."""
+    kw = dict(npoints=256, size=4, seed=1, split="test")
+    want = jsyn.SyntheticMultimodal(base=jsyn.SyntheticIndoorScene(**kw),
+                                    hw=(32, 32), seed=1)
+    got = syn.SyntheticMultimodal(base=syn.SyntheticIndoorScene(**kw),
+                                  hw=(32, 32), seed=1)
+    for i in (0, 3):
+        w, g = want[i], got[i]
+        assert sorted(w) == sorted(g) and "seg" in g
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            assert np.asarray(g[k]).dtype == np.asarray(w[k]).dtype, k
+
+
 # ------------------------------------------------------------- pipeline
 
 

@@ -310,3 +310,248 @@ def test_gather_backward_rejects_bad_inputs():
         with pytest.raises(RuntimeError, match="CUDA tensors"):
             tops.gather_backward(torch.zeros(1, 4, 3),
                                  torch.zeros(1, 4, dtype=torch.int32), 8)
+
+
+# -------------------------------------------------- three_nn / fused FP
+
+
+def _fp_inputs(seed, B, N, M, C1, dup=False, grid=False):
+    """tests/test_fused_fp.py's inputs, as numpy. ``dup``: its duplicate
+    case (a sparse point repeated, a dense point exactly on it, zero skip);
+    ``grid``: coordinates on the 1/16 grid, where (|s|^2 - 2 s.d) + |d|^2
+    is exact in f32 whatever the order of its sums."""
+    r = np.random.RandomState(seed)
+    if grid:
+        xyz1, xyz2 = (r.randint(-32, 33, (B, n, 3)).astype(np.float32) / 16
+                      for n in (N, M))
+    else:
+        xyz1, xyz2 = (r.randn(B, n, 3).astype(np.float32) for n in (N, M))
+    pre = r.randn(B, M, C1).astype(np.float32)
+    skip = r.randn(B, N, C1).astype(np.float32)
+    if dup:
+        xyz2[0, 10] = xyz2[0, 3]
+        xyz1[0, 0] = xyz2[0, 3]
+        skip[:] = 0.0
+    return xyz1, xyz2, pre, skip
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "grid_ties"])
+def test_three_nn_bit_exact(case):
+    if case == "random":
+        xyz1, xyz2 = _cloud(7, 2, 96), _cloud(8, 2, 40)
+    elif case == "duplicates":
+        xyz1, xyz2, _, _ = _fp_inputs(1, 1, 64, 32, 4, dup=True)
+    else:
+        # integer lattice: many exactly equal distances, ties to the lower
+        # index
+        g = np.random.RandomState(9)
+        xyz2 = g.randint(-2, 3, (2, 48, 3)).astype(np.float32)
+        xyz1 = g.randint(-2, 3, (2, 64, 3)).astype(np.float32)
+    wd, wi = map(np.asarray, G._three_nn_jax(jnp.asarray(xyz1),
+                                             jnp.asarray(xyz2)))
+    pd, pi = map(np.asarray, pk.three_nn_pallas(
+        jnp.asarray(xyz1), jnp.asarray(xyz2), interpret=True))
+    d, idx = tops.three_nn_torch(torch.from_numpy(xyz1),
+                                 torch.from_numpy(xyz2))
+    assert idx.dtype == torch.int32 and idx.shape == xyz1.shape
+    np.testing.assert_array_equal(idx.numpy(), wi)
+    np.testing.assert_array_equal(idx.numpy(), pi)
+    np.testing.assert_allclose(d.numpy(), wd, rtol=0, atol=1e-6)
+    # the Pallas kernel's distances come from one MXU product, which rounds
+    # the cross term differently (tests/test_pallas_kernels.py's bound)
+    np.testing.assert_allclose(d.numpy(), pd, rtol=1e-5, atol=1e-5)
+
+
+def test_interpolation_weights_and_three_interpolate_match_jax():
+    xyz1, xyz2, pre, _ = _fp_inputs(2, 2, 80, 24, 12)
+    d, idx = G._three_nn_jax(jnp.asarray(xyz1), jnp.asarray(xyz2))
+    w = G.interpolation_weights(d)
+    want = np.asarray(G._three_interpolate_jax(jnp.asarray(pre), idx, w))
+    tw = tops.interpolation_weights(torch.from_numpy(np.array(d)))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(w), rtol=1e-6)
+    got = tops.three_interpolate_torch(
+        torch.from_numpy(pre), torch.from_numpy(np.array(idx)), tw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("inputs", ["grid", "randn"])
+@pytest.mark.parametrize("N,M,C1,dup", [(256, 64, 128, False),
+                                        (130, 96, 32, False),
+                                        (64, 32, 64, True)])
+def test_fused_fp_torch_matches_pallas_fp32(N, M, C1, dup, inputs):
+    grid = inputs == "grid"
+    args = _fp_inputs(0, 2 if not dup else 1, N, M, C1, dup, grid)
+    want = np.asarray(pk.fused_fp_pallas(*map(jnp.asarray, args),
+                                         interpret=True))
+    targs = [torch.from_numpy(a) for a in args]
+    got = tops.fused_fp_torch(*targs)
+    wrapped = tops.fused_fp(*targs)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+    _, idx = tops.three_nn_torch(*targs[:2])
+    _, want_idx = pk.three_nn_pallas(*map(jnp.asarray, args[:2]),
+                                     interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    scale = max(np.abs(want).max(), 1e-9)
+    err = np.abs(got.numpy() - want).max() / scale
+    if grid:
+        # exact distances on both sides: the bound tests/test_fused_fp.py
+        # holds the Pallas kernel to
+        assert err < 1e-6, err
+    else:
+        # XLA's dot and the port's ordered sums round d2 = (|s|^2 - 2 s.d)
+        # + |d|^2 a few ulps of |x|^2 (~2e-7) apart; 1/(d2 + 1e-8) turns
+        # that into ~1e-5 of a weight at the smallest neighbour distances
+        assert err < 1e-5, err
+
+
+def test_fused_fp_torch_bf16_close():
+    xyz1, xyz2, pre, skip = _fp_inputs(2, 2, 128, 64, 64)
+    want = np.asarray(pk.fused_fp_pallas(
+        jnp.asarray(xyz1), jnp.asarray(xyz2),
+        jnp.asarray(pre).astype(jnp.bfloat16),
+        jnp.asarray(skip).astype(jnp.bfloat16), interpret=True), np.float32)
+    got = tops.fused_fp_torch(torch.from_numpy(xyz1), torch.from_numpy(xyz2),
+                              torch.from_numpy(pre).to(torch.bfloat16),
+                              torch.from_numpy(skip).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    scale = max(np.abs(want).max(), 1e-9)
+    # tests/test_fused_fp.py:71's bf16 bound
+    assert np.abs(got.float().numpy() - want).max() / scale < 2e-2
+
+
+def test_fused_fp_rejects_bad_inputs(monkeypatch):
+    """On the kernel path the wrapper checks before it builds or launches."""
+    monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
+    xyz1, xyz2, pre, skip = map(torch.from_numpy,
+                                _fp_inputs(3, 1, 16, 8, 4))
+    with pytest.raises(ValueError, match="at least 3"):
+        tops.fused_fp(xyz1, xyz2[:, :2], pre[:, :2], skip)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        tops.fused_fp(xyz1, xyz2, pre, skip[:, :5])
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tops.fused_fp(xyz1, xyz2, pre.double(), skip)
+
+
+# ------------------------------------------------- projection / bilinear
+
+
+def _bilinear_inputs(seed, B, H, W, C, N, spread=1.4):
+    """tests/test_bilinear_kernel.py::_mk, as numpy."""
+    r = np.random.RandomState(seed)
+    feat = r.randn(B, H, W, C).astype(np.float32)
+    uv = ((r.rand(B, N, 2) * spread - 0.2 * (spread - 1)).astype(np.float32)
+          * np.array([W - 1, H - 1], np.float32))
+    return feat, uv
+
+
+@pytest.mark.parametrize("case", ["fractional", "integer", "far_outside"])
+def test_bilinear_sample_torch_matches_jax_and_pallas(case):
+    from mm3d_tpu.ops import projection as jproj
+    feat, uv = _bilinear_inputs(0, 2, 16, 12, 24, 100)
+    if case == "integer":
+        uv = np.floor(uv)
+    elif case == "far_outside":
+        uv = uv + np.array([100.0, -50.0], np.float32)
+    want = np.asarray(jproj._bilinear_sample_jax(jnp.asarray(feat),
+                                                 jnp.asarray(uv)))
+    pal = np.asarray(pk.bilinear_sample_pallas_raw(
+        jnp.asarray(feat), jnp.asarray(uv), interpret=True))
+    got = tops.bilinear_sample_torch(torch.from_numpy(feat),
+                                     torch.from_numpy(uv))
+    wrapped = tops.projection.bilinear_sample(torch.from_numpy(feat),
+                                              torch.from_numpy(uv))
+    assert got.dtype == torch.float32 and got.shape == (2, 100, 24)
+    np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+    if case == "far_outside":
+        assert (got.numpy() == 0).all() and (want == 0).all()
+    elif case == "integer":
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), pal)
+        # in-frame integer points read their pixel exactly
+        inside = ((uv[..., 0] <= 11) & (uv[..., 1] <= 15)
+                  & (uv[..., 0] >= 0) & (uv[..., 1] >= 0))
+        b, n = np.nonzero(inside)
+        np.testing.assert_array_equal(
+            got.numpy()[b, n],
+            feat[b, uv[b, n, 1].astype(int), uv[b, n, 0].astype(int)])
+    else:
+        scale = np.abs(want).max()
+        assert np.abs(got.numpy() - want).max() / scale < 1e-6
+        assert np.abs(got.numpy() - pal).max() / scale < 1e-6
+
+
+def test_bilinear_sample_torch_bf16_matches_pallas():
+    """bf16: the TPU kernel's rounding (bf16 corner weights, f32 sums, one
+    rounding of the output); the two differ at most by the f32 summation
+    order, one bf16 ulp."""
+    feat, uv = _bilinear_inputs(1, 2, 16, 16, 32, 128)
+    want = np.asarray(pk.bilinear_sample_pallas_raw(
+        jnp.asarray(feat).astype(jnp.bfloat16), jnp.asarray(uv),
+        interpret=True).astype(jnp.float32))
+    got = tops.bilinear_sample_torch(torch.from_numpy(feat).to(torch.bfloat16),
+                                     torch.from_numpy(uv))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    assert (np.abs(got - want) <= ulp).all()
+
+
+def test_project_points_and_sample_image_features_match_jax():
+    from mm3d_tpu.data import synthetic as jsyn
+    from mm3d_tpu.ops import projection as jproj
+    r = np.random.RandomState(4)
+    B, N, hw = 2, 200, (32, 32)
+    xyz = (r.randn(B, N, 3) * 1.5).astype(np.float32)
+    K = np.stack([jsyn.default_intrinsics(hw)] * B)
+    Rt = [jsyn.random_viewpoint_extrinsics(r) for _ in range(B)]
+    R = np.stack([a for a, _ in Rt])
+    t = np.stack([b for _, b in Rt])
+    fmap = r.randn(B, 8, 8, 16).astype(np.float32)
+    j = list(map(jnp.asarray, (xyz, K, R, t)))
+    uv_w, z_w = map(np.asarray, jproj.project_points(*j))
+    tt = list(map(torch.from_numpy, (xyz, K, R, t)))
+    uv, z = tops.projection.project_points(*tt)
+    np.testing.assert_allclose(uv.numpy(), uv_w, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(z.numpy(), z_w, rtol=1e-5, atol=1e-5)
+    want, valid_w = map(np.asarray, jproj.sample_image_features(
+        jnp.asarray(fmap), *j, hw, stride=4))
+    got, valid = tops.projection.sample_image_features(
+        torch.from_numpy(fmap), *tt, hw, stride=4)
+    np.testing.assert_array_equal(valid.numpy(), valid_w)
+    assert 0.1 < valid_w.mean() < 1.0  # some points in frame, some not
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_bilinear_sample_raises_when_a_gradient_is_wanted(monkeypatch):
+    """The kernel has no backward yet: on the kernel path a wanted gradient
+    raises instead of coming back as zero."""
+    monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
+    feat = torch.zeros(1, 4, 4, 8)
+    uv = torch.zeros(1, 5, 2)
+    for f, u in ((feat.clone().requires_grad_(True), uv),
+                 (feat, uv.clone().requires_grad_(True))):
+        with pytest.raises(RuntimeError, match="no backward"):
+            tops.bilinear_sample(f, u)
+    # no gradient wanted: past the check, on to the device checks
+    with pytest.raises(TypeError, match="float32"):
+        with torch.no_grad():
+            tops.bilinear_sample(feat.requires_grad_(True), uv.double())
+
+
+def test_bilinear_sample_torch_is_differentiable_on_cpu():
+    """The plain twin carries gradients to the map and to uv, as the JAX
+    reference's VJP does."""
+    from mm3d_tpu.ops import projection as jproj
+    feat, uv = _bilinear_inputs(2, 1, 8, 8, 8, 32)
+    gf_j, gu_j = jax.grad(
+        lambda f, u: jnp.sum(jproj._bilinear_sample_jax(f, u) ** 2),
+        argnums=(0, 1))(jnp.asarray(feat), jnp.asarray(uv))
+    tf = torch.from_numpy(feat).requires_grad_(True)
+    tu = torch.from_numpy(uv).requires_grad_(True)
+    (tops.bilinear_sample(tf, tu) ** 2).sum().backward()
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(gf_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tu.grad.numpy(), np.asarray(gu_j), rtol=1e-4,
+                               atol=1e-5)
