@@ -15,9 +15,12 @@ that goes wrong:
    ball query bit-exact, the fused SA tail, the gather backward, the fused
    FP tail (fusion_sem_seg's FP2 and FP1, plus tie cases) and the bilinear
    image sampling within the stated tolerances (the gather backward also
-   bit-identical across two launches), and times the kernel, its plain twin
-   and, where one PyTorch call computes the same function, that call: the
-   device time per call from torch.profiler (``ms``, ``plain_ms``,
+   bit-identical across two launches); at fusion_sem_seg's training shapes
+   (B=24 blocks of 2048 points) three_nn and three_interpolate bit-exact
+   (tie cases included), and the backwards of three_interpolate and of the
+   sampling against autograd of the plain path. It times the kernel, its
+   plain twin and, where one PyTorch call computes the same function, that
+   call: the device time per call from torch.profiler (``ms``, ``plain_ms``,
    ``library_ms``, the numbers of the kernels line) and CUDA events around
    a call (``*call_ms``, the host's launch time included);
 3. serves fusion_cls through ``make_predictor`` at full width (B=128 clouds
@@ -39,6 +42,14 @@ that goes wrong:
    fall), one epoch of ``Trainer.fit`` on synthetic data (the main path: its
    launch counts are reset just before and read just after), and the median
    step time, clouds/s and peak memory;
+4b. trains fusion_sem_seg (config 5) at full width the same way: B=24
+   synthetic S3DIS-style blocks of 2048 points with 64x64 views and 13
+   classes, the calib-aware Z rotation and dropout 0.5, fp32 with TF32 off
+   then bf16: kernel-vs-plain step parity, the launches of one step (three_nn
+   and three_interpolate twice, the gather backward five times), of a BN
+   refresh and of an eval forward, the median step time, clouds/s, points/s
+   and peak memory, and one short epoch of ``Trainer.fit`` (the main path)
+   that ends in an eval with a finite mIoU;
 5. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -61,6 +72,9 @@ TRAIN_BATCH = 24  # TrainConfig's default batch
 # points per request), TrainConfig's 64x64 views, S3DIS's 13 classes
 SEG_BATCH, SEG_NPOINT, SEG_CLASSES = 16, 2048, 13
 TRAIN_SIZE, TEST_SIZE = 240, 48  # one epoch of 10 steps, 2 eval batches
+# fusion_sem_seg training: TrainConfig's batch of the registry's 2048-point
+# blocks; one short epoch of 3 steps and 1 eval batch
+SEG_TRAIN_SIZE, SEG_TEST_SIZE = 72, 24
 # H100 SXM published peaks (NVIDIA H100 data sheet):
 # device memory rate, dense bf16 tensor-core rate, f32 CUDA-core rate
 PEAK_BYTES_S = 3.35e12
@@ -86,7 +100,17 @@ F32_RTOL = F32_ATOL = 1e-5
 # train-mode BN, which subtracts the batch mean) is rounding residue on both
 # paths: one whose largest element on both is below RESIDUE of the model's
 # largest gradient element is held, like the residue itself, to that scale.
+# In bf16 such a residue is bf16 rounding of the BN backward's sums: the
+# fusion_sem_seg step takes BF16_RESIDUE, half a bf16 ulp (2^-9) of the
+# largest element (measured: sa2's proj_bias at 5e-4 of it). In the
+# fusion_sem_seg step a kernel also feeds the image CNN's backward (the
+# sampling's d_feat, one bf16 rounding of an f32 sum taken in another order
+# than index_add_'s), and the CNN's bf16 BN backward over small maps
+# magnifies a one-ulp difference: its bf16 gradients get BF16_SEG_GRAD_REL,
+# 8 bf16 ulps (2^-5) of each tensor's largest element (measured: 1.13e-2 at
+# image_trunk.s0b1.bn1.bias).
 GRAD_REL, GRAD_ABS, BF16_GRAD_REL, RESIDUE = 1e-4, 1e-7, 1e-2, 1e-4
+BF16_RESIDUE, BF16_SEG_GRAD_REL = 2.0 ** -9, 2.0 ** -5
 
 
 class SmokeError(RuntimeError):
@@ -377,6 +401,7 @@ def kernel_checks(torch, ops, geometry, dev):
                                {"float32": B * F * C_}))
         record("gather_backward", label, entry)
     semseg_kernel_checks(torch, ops, dev, record)
+    semseg_train_kernel_checks(torch, ops, dev, record)
     return rows
 
 
@@ -525,6 +550,185 @@ def semseg_kernel_checks(torch, ops, dev, record):
             record("bilinear_sample", f"{label} {dtname}", entry)
 
 
+def semseg_train_kernel_checks(torch, ops, dev, record):
+    """three_nn and three_interpolate (forward and backward) and the
+    bilinear sampling's backward at fusion_sem_seg's training shapes (B=24
+    blocks of 2048 points), against their plain twins.
+
+    three_nn and three_interpolate repeat their twin's arithmetic in the
+    same order: both must be bit-exact. The backwards (three_interpolate's
+    d_points and the sampling's d_feat, each one gather-backward launch)
+    against autograd of the plain path: their f32 sums run in another order
+    than index_add_'s, so max|d| / max|ref| <= 1e-6 in f32 and <= 1e-2 in
+    bf16 (a different f32 sum can round to a neighbouring bf16 value)."""
+    import torch.nn.functional as F
+    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.ops import projection
+
+    B, N = TRAIN_BATCH, SEG_NPOINT
+    pts, _, K, R, t = (torch.from_numpy(a).to(dev)
+                       for a in semseg_request(B, N, IMAGE_HW, seed=6))
+    xyz = pts[..., :3].contiguous()
+    with ops.use_impl("torch"):
+        l1 = ops.index_points(xyz, ops.fps_torch(xyz, 256))
+        l2 = ops.index_points(l1, ops.fps_torch(l1, 64))
+    g = np.random.RandomState(4)
+
+    def feats(*shape):
+        return torch.from_numpy(g.randn(*shape).astype(np.float32)).to(dev)
+
+    # --- three_nn: FP2 and FP1, a duplicated sparse point with a dense
+    # point on it, and a cloud on the 1/16 grid (exact distances, many equal)
+    dup1, dup2 = xyz[:, :512].clone(), l1.clone()
+    dup2[:, 10] = dup2[:, 3]
+    dup1[:, 0] = dup2[:, 3]
+    grid1 = torch.from_numpy(g.randint(-32, 33, (4, 300, 3)).astype(
+        np.float32) / 16).to(dev)
+    grid2 = torch.from_numpy(g.randint(-32, 33, (4, 40, 3)).astype(
+        np.float32) / 16).to(dev)
+    nn = {}
+    for label, x1, x2, timed in (
+            ("FP2 N=256 M=64", l1, l2, True),
+            ("FP1 N=2048 M=256", xyz, l1, True),
+            ("duplicated sparse point", dup1, dup2, False),
+            ("1/16 grid, ties", grid1, grid2, False)):
+        d, idx = ops.three_nn(x1, x2)
+        with ops.use_impl("torch"):
+            wd, wi = ops.three_nn(x1, x2)
+        torch.cuda.synchronize()
+        check(d.shape == idx.shape == (x1.shape[0], x1.shape[1], 3)
+              and idx.dtype == torch.int32, f"three_nn {label}: shape/dtype")
+        check(torch.equal(idx, wi) and torch.equal(d, wd),
+              f"three_nn {label}: not bit-exact")
+        nn[label] = (d, idx)
+        entry = {"bit_exact": True, "max_abs_err": 0.0}
+        if timed:
+            Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
+            entry.update(times(torch, lambda: ops.three_nn(x1, x2), 20))
+            with ops.use_impl("torch"):
+                entry.update(times(torch, lambda: ops.three_nn(x1, x2), 10,
+                                   "plain_"))
+            # the library yardstick: all distances, then the 3 smallest
+            entry.update(times(torch, lambda: torch.cdist(x1, x2).topk(
+                3, dim=-1, largest=False), 20, "library_"))
+            # 8 f32 operations per distance (two 3-term dots, the doubling,
+            # a subtraction and an addition; the comparisons not counted)
+            entry.update(bound((Bx * Nx + Bx * Mx) * 12 + Bx * Nx * 3 * 8,
+                               {"float32": 8 * Bx * Nx * Mx}))
+        record("three_nn", label, entry)
+
+    # --- three_interpolate: the forward bit-exact, the backward (d_points)
+    # against autograd of the plain path, at FP2 (C=256) and FP1 (C=128)
+    for label, key, M, C in (("FP2 N=256 M=64 C=256", "FP2 N=256 M=64", 64,
+                              256),
+                             ("FP1 N=2048 M=256 C=128", "FP1 N=2048 M=256",
+                              256, 128)):
+        d, idx = nn[key]
+        w32 = ops.interpolation_weights(d)
+        Nx = idx.shape[1]
+        pre32, co32 = feats(B, M, C), feats(B, Nx, C)
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32)):
+            pre, w, co = pre32.to(dt), w32.to(dt), co32.to(dt)
+            got = ops.three_interpolate(pre, idx, w)
+            with ops.use_impl("torch"):
+                want = ops.three_interpolate(pre, idx, w)
+            torch.cuda.synchronize()
+            check(got.shape == (B, Nx, C) and got.dtype == dt,
+                  f"three_interpolate {label} {dtname}: shape/dtype")
+            check(torch.equal(got, want),
+                  f"three_interpolate {label} {dtname}: not bit-exact")
+            entry = {"dtype": dtname, "bit_exact": True, "max_abs_err": 0.0,
+                     **times(torch, lambda: ops.three_interpolate(
+                         pre, idx, w), 20)}
+            with ops.use_impl("torch"):
+                entry.update(times(torch, lambda: ops.three_interpolate(
+                    pre, idx, w), 10, "plain_"))
+            # no single PyTorch call computes this function
+            entry["library_ms"] = None
+            es = pre.element_size()
+            entry.update(bound(B * M * C * es + B * Nx * 3 * (4 + 4)
+                               + B * Nx * C * es,
+                               {"float32": 5 * B * Nx * C}))
+            record("three_interpolate", f"{label} {dtname}", entry)
+
+            # backward: d_points through the gather-backward kernel
+            def grad_of(impl):
+                with ops.use_impl(impl):
+                    p = pre.clone().requires_grad_(True)
+                    out = ops.three_interpolate(p, idx, w)
+                return p, out
+
+            pk, ok_ = grad_of("auto")
+            pp, op_ = grad_of("torch")
+            gk = torch.autograd.grad(ok_, pk, co, retain_graph=True)[0]
+            gp = torch.autograd.grad(op_, pp, co, retain_graph=True)[0]
+            torch.cuda.synchronize()
+            rel, err = _rel_err(gk, gp)
+            check(gk.dtype == dt and rel <= (1e-2 if dt == torch.bfloat16
+                                             else 1e-6),
+                  f"three_interpolate backward {label} {dtname}: "
+                  f"max|d|/max|ref| {rel}")
+            entry = {"dtype": dtname, "max_abs_err": err, "rel_err": rel,
+                     **times(torch, lambda: torch.autograd.grad(
+                         ok_, pk, co, retain_graph=True), 20)}
+            entry.update(times(torch, lambda: torch.autograd.grad(
+                op_, pp, co, retain_graph=True), 10, "plain_"))
+            entry["library_ms"] = None
+            # g and w read, d_points written; f32 sums of the 3 products
+            entry.update(bound(B * Nx * C * es + B * Nx * 3 * (4 + es)
+                               + B * M * C * es,
+                               {"float32": 2 * 3 * B * Nx * C}))
+            record("three_interpolate_backward", f"{label} {dtname}", entry)
+
+    # --- the sampling's backward: a [24,16,16,128] map at the projected
+    # points (out-of-frame and behind-camera points included)
+    H, W, C = IMAGE_HW[0] // 4, IMAGE_HW[1] // 4, 128
+    uv, _ = projection.project_points(xyz, K, R, t)
+    uv = (uv / 4.0).contiguous()
+    fmap32, co32 = feats(B, H, W, C), feats(B, N, C)
+    grid = torch.stack([uv[..., 0] / (W - 1) * 2 - 1,
+                        uv[..., 1] / (H - 1) * 2 - 1], -1)[:, :, None, :]
+    for dtname, dt in (("bfloat16", torch.bfloat16),
+                       ("float32", torch.float32)):
+        fmap, co = fmap32.to(dt), co32.to(dt)
+
+        def grad_of(impl):
+            with ops.use_impl(impl):
+                f = fmap.clone().requires_grad_(True)
+                out = ops.bilinear_sample(f, uv)
+            return f, out
+
+        fk, ok_ = grad_of("auto")
+        fp, op_ = grad_of("torch")
+        gk = torch.autograd.grad(ok_, fk, co, retain_graph=True)[0]
+        gp = torch.autograd.grad(op_, fp, co, retain_graph=True)[0]
+        torch.cuda.synchronize()
+        rel, err = _rel_err(gk, gp)
+        check(gk.dtype == dt and gk.shape == fmap.shape
+              and rel <= (1e-2 if dt == torch.bfloat16 else 1e-6),
+              f"bilinear backward {dtname}: max|d|/max|ref| {rel}")
+        entry = {"dtype": dtname, "max_abs_err": err, "rel_err": rel,
+                 **times(torch, lambda: torch.autograd.grad(
+                     ok_, fk, co, retain_graph=True), 20)}
+        entry.update(times(torch, lambda: torch.autograd.grad(
+            op_, fp, co, retain_graph=True), 10, "plain_"))
+        # the library yardstick: grid_sample's backward on the NCHW view
+        nchw = fmap.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        gs_out = F.grid_sample(nchw, grid.to(dt), mode="bilinear",
+                               padding_mode="zeros", align_corners=True)
+        gs_co = co.permute(0, 2, 1)[..., None].contiguous()
+        entry.update(times(torch, lambda: torch.autograd.grad(
+            gs_out, nchw, gs_co, retain_graph=True), 20, "library_"))
+        es = fmap.element_size()
+        # g and uv read, d_feat written; 4 corner weights and 4 sums a
+        # channel
+        entry.update(bound(B * N * C * es + B * N * 8 + B * H * W * C * es,
+                           {"float32": 12 * B * N * C}))
+        record("bilinear_backward", f"map [{B},{H},{W},{C}] at {B}x{N} "
+                                    f"points {dtname}", entry)
+
+
 def serve(torch, ops, cuda_kernels, dev):
     """fusion_cls through make_predictor at full width, bf16 and fp32."""
     from mm3d_tpu_torch.models import get_model, init_params
@@ -559,13 +763,15 @@ def serve(torch, ops, cuda_kernels, dev):
     check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
                                  "query_ball_point": 0, "fused_sa": 2 * n,
                                  "gather_backward": 0, "fused_fp": 0,
-                                 "bilinear_sample": 0},
+                                 "bilinear_sample": 0, "three_nn": 0,
+                                 "three_interpolate": 0},
           f"bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused SA "
           "per forward")
     check(counts["float32"] == {"farthest_point_sample": 2 * n,
                                 "query_ball_point": 2 * n, "fused_sa": 0,
                                 "gather_backward": 0, "fused_fp": 0,
-                                "bilinear_sample": 0},
+                                "bilinear_sample": 0, "three_nn": 0,
+                                "three_interpolate": 0},
           f"fp32 launches {counts['float32']}: want 2 FPS + 2 ball query "
           "per forward")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
@@ -642,13 +848,15 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
     check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
                                  "query_ball_point": 0, "fused_sa": 2 * n,
                                  "gather_backward": 0, "fused_fp": 2 * n,
-                                 "bilinear_sample": n},
+                                 "bilinear_sample": n, "three_nn": 0,
+                                 "three_interpolate": 0},
           f"semseg bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused "
           "SA + 2 fused FP + 1 bilinear per forward")
     check(counts["float32"] == {"farthest_point_sample": 2 * n,
                                 "query_ball_point": 2 * n, "fused_sa": 0,
                                 "gather_backward": 0, "fused_fp": 2 * n,
-                                "bilinear_sample": n},
+                                "bilinear_sample": n, "three_nn": 0,
+                                "three_interpolate": 0},
           f"semseg fp32 launches {counts['float32']}: want 2 FPS + 2 ball "
           "query + 2 fused FP + 1 bilinear per forward")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
@@ -704,6 +912,51 @@ def _stats(model):
     return {n: b.detach().clone() for n, b in model.named_buffers()}
 
 
+def step_parity(torch, label, dtype, kmodel, pmodel, mk, mp,
+                residue_share=RESIDUE, rel=None):
+    """One train step on the kernel path (kmodel, metrics mk) against one on
+    the plain path (pmodel, mp) from the same state, batch and draws: the
+    loss, every gradient and the BN statistics, to PERF.md's limits. Each
+    gradient within ``rel`` (default GRAD_REL, bf16 BF16_GRAD_REL) of its
+    largest element; one whose largest element is below ``residue_share``
+    of the model's largest is rounding residue, held to that scale."""
+    lk, lp = float(mk["loss"]), float(mp["loss"])
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(loss_rel <= 1e-5, f"{label}: loss kernel {lk} vs plain {lp}")
+    if rel is None:
+        rel = BF16_GRAD_REL if dtype is not None else GRAD_REL
+    gk, gp = _grads(kmodel), _grads(pmodel)
+    top = max(float(g.float().abs().max()) for g in gp.values())
+    residue, errs, bad = [], {}, []
+    for n in gk:
+        d = float((gk[n].float() - gp[n].float()).abs().max())
+        scale = float(gp[n].float().abs().max())
+        biggest = max(scale, float(gk[n].float().abs().max()))
+        if biggest <= residue_share * top:
+            residue.append(n)
+            if d > residue_share * top:
+                bad.append(f"residue grad {n} max|d| {d}")
+            continue
+        errs[n] = d / (scale + 1e-30)
+        if d > rel * scale + GRAD_ABS:
+            bad.append(f"grad {n} max|d| {d} vs max|g| {scale}")
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    check(not bad, f"{label}: {bad}; worst max|d|/max|g| {worst}")
+    worst_grad = worst[0][1] if worst else 0.0
+    sk, sp = _stats(kmodel), _stats(pmodel)
+    worst_stat = max(float(((sk[n] - sp[n]).abs()
+                            - 1e-5 * sp[n].abs()).max()) for n in sk)
+    check(worst_stat <= 1e-5, f"{label}: BN statistics differ ({worst_stat})")
+    print(f"{label}: kernel vs plain step: loss {lk} vs {lp}, worst grad "
+          f"max|d|/max|g| {worst_grad} over {len(gk) - len(residue)} tensors, "
+          f"{len(residue)} residue tensors (max|g| <= {residue_share} x {top}),"
+          " BN stats ok", flush=True)
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel,
+            "max_grad_rel_to_max": worst_grad, "worst_grads": worst,
+            "largest_grad": top, "residue_grads": residue,
+            "bn_stats_excess": worst_stat}
+
+
 def train(torch, ops, cuda_kernels, dev):
     """fusion_cls training at full width, fp32 (TF32 off) then bf16."""
     import copy
@@ -757,45 +1010,12 @@ def train(torch, ops, cuda_kernels, dev):
             mp = pstep(batch, 1e-3, 0.1)
         torch.cuda.synchronize()
         torch.backends.cudnn.deterministic = False
-        lk, lp = float(mk["loss"]), float(mp["loss"])
-        loss_rel = abs(lk - lp) / abs(lp)
-        check(loss_rel <= 1e-5, f"train {dtname}: loss kernel {lk} vs plain "
-                                f"{lp}")
-        rel = BF16_GRAD_REL if dtype is not None else GRAD_REL
-        gk, gp = _grads(kmodel), _grads(pmodel)
-        top = max(float(g.float().abs().max()) for g in gp.values())
-        worst_grad, residue = 0.0, []
-        for n in gk:
-            d = float((gk[n].float() - gp[n].float()).abs().max())
-            scale = float(gp[n].float().abs().max())
-            if max(scale, float(gk[n].float().abs().max())) <= RESIDUE * top:
-                residue.append(n)
-                check(d <= RESIDUE * top, f"train {dtname}: residue grad {n} "
-                                          f"max|d| {d}")
-                continue
-            check(d <= rel * scale + GRAD_ABS,
-                  f"train {dtname}: grad {n} max|d| {d} vs max|g| {scale}")
-            worst_grad = max(worst_grad, d / (scale + 1e-30))
-        sk, sp = _stats(kmodel), _stats(pmodel)
-        worst_stat = max(float(((sk[n] - sp[n]).abs()
-                                - 1e-5 * sp[n].abs()).max()) for n in sk)
-        check(worst_stat <= 1e-5, f"train {dtname}: BN statistics differ "
-                                  f"({worst_stat})")
-        res["kernel_vs_plain"] = {"loss_kernel": lk, "loss_plain": lp,
-                                  "loss_rel": loss_rel,
-                                  "max_grad_rel_to_max": worst_grad,
-                                  "largest_grad": top,
-                                  "residue_grads": residue,
-                                  "bn_stats_excess": worst_stat}
-        print(f"train {dtname}: kernel vs plain step: loss {lk} vs {lp}, "
-              f"worst grad max|d|/max|g| {worst_grad} over "
-              f"{len(gk) - len(residue)} tensors, {len(residue)} residue "
-              f"tensors (max|g| <= {RESIDUE} x {top}), BN stats ok",
-              flush=True)
+        res["kernel_vs_plain"] = step_parity(torch, f"train {dtname}",
+                                             dtype, kmodel, pmodel, mk, mp)
         # (b) launches of one step, of a BN refresh and of an eval forward
         want = {"farthest_point_sample": 2, "query_ball_point": 2,
                 "gather_backward": 2, "fused_sa": 0, "fused_fp": 0,
-                "bilinear_sample": 0}
+                "bilinear_sample": 0, "three_nn": 0, "three_interpolate": 0}
         check(per_step == want, f"train {dtname}: launches per step "
                                 f"{per_step}, want {want}")
         refresh = steps.make_bn_refresh_step(
@@ -872,11 +1092,138 @@ def train(torch, ops, cuda_kernels, dev):
     return out
 
 
+def train_semseg(torch, ops, cuda_kernels, dev):
+    """fusion_sem_seg training at full width, fp32 (TF32 off) then bf16."""
+    import copy
+
+    from mm3d_tpu_torch.data.augment import TASK_PIPELINES
+    from mm3d_tpu_torch.data.pipeline import DataPipeline
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import TrainConfig, Trainer, steps
+    from mm3d_tpu_torch.training.loop import build_datasets
+    from mm3d_tpu_torch.training.state import make_optimizer
+
+    spec = get_model("fusion_sem_seg")
+    task, names = "fusion_semseg", TASK_PIPELINES["fusion_semseg"]
+    B, N, ncls = TRAIN_BATCH, SEG_NPOINT, SEG_CLASSES
+
+    def config(**kw):
+        return TrainConfig(model="fusion_sem_seg", train_size=SEG_TRAIN_SIZE,
+                           test_size=SEG_TEST_SIZE, epochs=1, batch_size=B,
+                           npoint=N, seg_classes=ncls, **kw)
+
+    train_ds, _ = build_datasets(config(), task)
+    batch = next(iter(DataPipeline(train_ds, B, shuffle=False,
+                                   to_device=dev).epoch(0)))
+    out = {"launches": {k.__name__: 0 for k in cuda_kernels.KERNELS}}
+
+    def make(dtype, seed=0):
+        return init_params(spec.builder(num_class=ncls, dtype=dtype),
+                           seed).to(dev)
+
+    def stepper(model, gen_seed=7):
+        opt = make_optimizer(model.parameters(), "adam", 1e-4)
+        return steps.make_train_step(
+            model, spec.loss, opt, task, augment_names=names,
+            generator=torch.Generator(dev).manual_seed(gen_seed))
+
+    for dtname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        res = {}
+        # (a) kernel path vs plain path, one step from the same state and
+        # batch (same generator seed: same rotation and dropout draws)
+        torch.backends.cudnn.deterministic = True
+        kmodel = make(dtype)
+        pmodel = copy.deepcopy(kmodel)
+        kstep, pstep = stepper(kmodel), stepper(pmodel)
+        cuda_kernels.reset_launches()
+        mk = kstep(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        per_step = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        with ops.use_impl("torch"):
+            mp = pstep(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        label = f"train fusion_sem_seg {dtname}"
+        res["kernel_vs_plain"] = step_parity(
+            torch, label, dtype, kmodel, pmodel, mk, mp,
+            *((RESIDUE, GRAD_REL) if dtype is None
+              else (BF16_RESIDUE, BF16_SEG_GRAD_REL)))
+        # (b) launches of one step, of a BN refresh and of an eval forward
+        want = {"farthest_point_sample": 2, "query_ball_point": 2,
+                "gather_backward": 5, "fused_sa": 0, "fused_fp": 0,
+                "bilinear_sample": 1, "three_nn": 2, "three_interpolate": 2}
+        check(per_step == want, f"{label}: launches per step {per_step}, "
+                                f"want {want}")
+        refresh = steps.make_bn_refresh_step(
+            kmodel, task, names, torch.Generator(dev).manual_seed(3))
+        evaluate = steps.make_eval_step(kmodel, spec.loss, task, ncls)
+        cuda_kernels.reset_launches()
+        refresh(batch)
+        em = evaluate(batch)
+        torch.cuda.synchronize()
+        side = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        check(side["gather_backward"] == 0 and side["three_nn"] == 2
+              and side["three_interpolate"] == 2 and side["fused_fp"] == 2
+              and side["bilinear_sample"] == 2,
+              f"{label}: BN refresh + eval launched {side}")
+        check(int(em["count"]) == B * N, f"{label}: eval count")
+        res["launches_per_step"] = per_step
+        res["launches_refresh_plus_eval"] = side
+        print(f"{label}: launches per step {per_step}; BN refresh + eval "
+              f"forward {side}", flush=True)
+        # (e) step time at B=24 x 2048 (the full step: rotation, dropout):
+        # CUDA events over 10 steps after 3 warm-ups
+        step = stepper(kmodel, gen_seed=13)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(torch, lambda: step(batch, 1e-3, 0.1), 10, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        res.update({"step_ms": ms, "clouds_per_s": B / ms * 1e3,
+                    "points_per_s": B * N / ms * 1e3,
+                    "peak_memory_bytes": peak})
+        print(f"{label}: median step {ms} ms, {res['clouds_per_s']} "
+              f"clouds/s, {res['points_per_s']} points/s at B={B} x N={N}, "
+              f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+        del kmodel, pmodel, step, kstep, pstep
+        # (d) the main path: one short epoch of Trainer.fit (3 steps; eval
+        # over 24 blocks; in bf16 the BN refresh before it)
+        trainer = Trainer(config(dtype=dtname, device=str(dev)))
+        cuda_kernels.reset_launches()
+        final = trainer.fit()
+        torch.cuda.synchronize()
+        fit_launches = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        nsteps = trainer.train_pipe.steps_per_epoch()
+        hist = trainer.history[0]
+        check(nsteps == SEG_TRAIN_SIZE // B, f"fit: {nsteps} steps")
+        check(fit_launches["gather_backward"] == 5 * nsteps
+              and fit_launches["three_nn"] >= 2 * nsteps
+              and fit_launches["three_interpolate"] >= 2 * nsteps
+              and fit_launches["fused_fp"] == 2 * (SEG_TEST_SIZE // B),
+              f"fit {label}: launches {fit_launches}")
+        check(np.isfinite(hist["train"]["loss"])
+              and np.isfinite(final["eval_loss"])
+              and 0.0 <= final["point_acc"] <= 1.0
+              and 0.0 <= final["miou"] <= 1.0,
+              f"fit {label}: metrics {hist}")
+        for k, v in fit_launches.items():
+            out["launches"][k] += v
+        res["fit"] = {"train": hist["train"], "eval": final,
+                      "launches": fit_launches,
+                      "bn_refresh_steps": trainer._bn_refresh_n}
+        print(f"fit {label}: 1 epoch of {nsteps} steps, train "
+              f"{hist['train']}, eval {final}, launches {fit_launches}",
+              flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+        out[dtname] = res
+    return out
+
+
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
     named (fused SA and fused FP: bf16 serving; gather backward: the f32
-    train step; bilinear: f32, where grid_sample is the yardstick). ms,
-    plain_ms and library_ms are device times per call (torch.profiler)."""
+    train step; bilinear: f32, where grid_sample is the yardstick;
+    three_nn: f32; three_interpolate: the f32 train step). ms, plain_ms and
+    library_ms are device times per call (torch.profiler)."""
     path = {
         "fps": ("farthest_point_sample", "mm3d_tpu_torch/csrc/fps.cu",
                 "mm3d_tpu/ops/pallas_kernels.py:174", None),
@@ -892,6 +1239,12 @@ def kernels_line(rows, launches):
         "bilinear_sample": ("bilinear_sample",
                             "mm3d_tpu_torch/csrc/bilinear.cu",
                             "mm3d_tpu/ops/pallas_kernels.py:1459", "float32"),
+        "three_nn": ("three_nn", "mm3d_tpu_torch/csrc/three_nn.cu",
+                     "mm3d_tpu/ops/pallas_kernels.py:470", None),
+        "three_interpolate": ("three_interpolate",
+                              "mm3d_tpu_torch/csrc/three_interp.cu",
+                              "mm3d_tpu/ops/pallas_kernels.py:1387",
+                              "float32"),
     }
     out = []
     for name, (wrapper, src, replaces, dtname) in path.items():
@@ -905,9 +1258,10 @@ def kernels_line(rows, launches):
             "plain_ms": sum(e["plain_ms"] for e in timed),
             "bound_ms": sum(e["bound_ms"] for e in timed),
             "bound_by": max(timed, key=lambda e: e["bound_ms"])["bound_by"],
-            # one PyTorch call computes the gather backward (index_add_)
-            # and the sampling (grid_sample); FPS, ball query and the fused
-            # SA and FP tails have none
+            # one PyTorch call computes the gather backward (index_add_),
+            # the sampling (grid_sample) and the 3-NN (cdist + topk); FPS,
+            # ball query, the fused SA and FP tails and the interpolation
+            # have none
             "library_ms": (sum(e["library_ms"] for e in timed)
                            if timed[0].get("library_ms") is not None
                            else None)})
@@ -953,11 +1307,13 @@ def main():
     served = serve(torch, ops, cuda_kernels, dev)
     semseg = serve_semseg(torch, ops, cuda_kernels, dev)
     trained = train(torch, ops, cuda_kernels, dev)
+    trained_seg = train_semseg(torch, ops, cuda_kernels, dev)
     # each kernel's launches on the main paths: serving fusion_cls and
-    # fusion_sem_seg (bf16 + fp32) and one epoch of Trainer.fit (fp32 +
-    # bf16)
+    # fusion_sem_seg (bf16 + fp32) and one epoch of Trainer.fit of each
+    # model (fp32 + bf16)
     launches = {k: served["launches"][k] + semseg["launches"][k]
-                + trained["launches"][k] for k in served["launches"]}
+                + trained["launches"][k] + trained_seg["launches"][k]
+                for k in served["launches"]}
     kernels = kernels_line(rows, launches)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on "
@@ -968,7 +1324,8 @@ def main():
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "kernel_checks": rows,
                    "serve": served, "serve_fusion_sem_seg": semseg,
-                   "train": trained, "kernels": kernels},
+                   "train": trained, "train_fusion_sem_seg": trained_seg,
+                   "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

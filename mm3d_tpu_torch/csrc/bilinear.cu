@@ -17,8 +17,9 @@
 // its mask or weight.
 //
 // Replaces the TPU kernel bilinear_sample_pallas_raw / _bilinear_kernel in
-// mm3d_tpu/ops/pallas_kernels.py (the forward; its custom VJP waits for the
-// training slice). That kernel builds each point's four weights as a one-hot
+// mm3d_tpu/ops/pallas_kernels.py (the forward; the VJP is
+// cuda_kernels._BilinearSample, which scatters the corner cotangents through
+// gather_bwd.cu). That kernel builds each point's four weights as a one-hot
 // [nt, H*W] row and multiplies it into the map on the MXU, because a TPU core
 // has no fast gather. Here a point is four row gathers and a lerp per
 // channel.

@@ -1,7 +1,7 @@
 // 3-nearest-neighbour selection of one dense point among M sparse points.
 //
-// Shared by the fused FP kernel (fused_fp.cu) and, with the training slice, a
-// standalone three_nn kernel, the way ball_query.cuh serves two kernels. The
+// Shared by the fused FP kernel (fused_fp.cu) and the standalone three_nn
+// kernel (three_nn.cu), the way ball_query.cuh serves two kernels. The
 // contract is geometry.three_nn_torch's (the plain twin of
 // geometry._three_nn_jax): d2 = (|x1|^2 - 2 x1.x2) + |x2|^2 with the
 // three-term dots of mm3d_dot3 and no FMA contraction, so every distance is

@@ -4,8 +4,7 @@ Late fusion for classification (``FusionCls``, config 4: global point
 feature with the global image feature) and per-point fusion for
 segmentation (``FusionSemSeg``, config 5: dense point features with pixel
 features projected and bilinearly sampled from the CNN's stride-4 map), each
-with the 'concat' and 'attention' heads. ``FusionCls`` serves and trains;
-``FusionSemSeg`` serves (its training comes with the next slice).
+with the 'concat' and 'attention' heads. Both serve and train.
 """
 
 from __future__ import annotations

@@ -17,10 +17,9 @@ trunk, project-first:
 * fused (``:479-496``), eval (``_want_fused_fp``): BN folds to an affine map,
   so 3-NN, inverse-distance interpolation, the dense-side term and relu run
   as one kernel (``ops.fused_fp``), in every dtype;
-* unfused (``:497-509``): three_nn, the interpolation (whose gather's
-  backward is the gather-backward kernel), skip, bias, BN, relu. Training
-  takes it; on the kernel path it raises until the three_nn kernel lands
-  with the fusion_sem_seg training slice;
+* unfused (``:497-509``): the three_nn kernel, the inverse-distance
+  weights, the three_interpolate kernel (whose backward is the
+  gather-backward kernel), skip, bias, BN, relu. Training takes it;
 * M == 1 broadcasts the single sparse row.
 
 Train or eval is the module's ``training`` flag. The dtype casts sit where
@@ -232,15 +231,9 @@ class FeaturePropagation(nn.Module):
             if M == 1:
                 h = pre.expand(B, N, c1)
             else:
-                if dispatch.resolve(xyz1) == "cuda":
-                    raise NotImplementedError(
-                        "FeaturePropagation's unfused branch needs the "
-                        "three_nn kernel, which comes with the "
-                        "fusion_sem_seg training slice")
-                dists, idx = ops.three_nn_torch(xyz1, xyz2)
+                dists, idx = ops.three_nn(xyz1, xyz2)
                 weight = ops.interpolation_weights(dists)
-                h = ops.three_interpolate_torch(pre, idx,
-                                                weight.to(pre.dtype))
+                h = ops.three_interpolate(pre, idx, weight.to(pre.dtype))
             if feats1 is not None:
                 h = h + torch.matmul(feats1.to(pre.dtype), k_skip)
             h = h + bias

@@ -20,8 +20,8 @@ from mm3d_tpu_torch.ops.dispatch import get_impl, set_impl, use_impl
 from mm3d_tpu_torch.ops.geometry import (ball_query_torch, fps_torch,
                                          index_points, interpolation_weights,
                                          sample_and_group_all,
-                                         square_distance,
-                                         three_interpolate_torch,
+                                         square_distance, three_interpolate,
+                                         three_interpolate_torch, three_nn,
                                          three_nn_torch)
 
 __all__ = [
@@ -40,8 +40,10 @@ __all__ = [
     "fused_fp_torch",
     "bilinear_sample",
     "bilinear_sample_torch",
+    "three_nn",
     "three_nn_torch",
     "interpolation_weights",
+    "three_interpolate",
     "three_interpolate_torch",
     "projection",
     "set_impl",

@@ -15,10 +15,15 @@ fused_sa               csrc/fused_sa.cu                fused_sa_torch (here)
 gather_backward        csrc/gather_bwd.cu              gather_backward_torch
 fused_fp               csrc/fused_fp.cu (+ three_nn)   fused_fp_torch (here)
 bilinear_sample        csrc/bilinear.cu                bilinear_sample_torch
+three_nn               csrc/three_nn.cu (+ .cuh)       geometry.three_nn_torch
+three_interpolate      csrc/three_interp.cu            three_interpolate_torch
 =====================  ==============================  ========================
 
 ``bilinear_sample`` and its twin are also the public names of
-``ops.projection``.
+``ops.projection``; with a gradient wanted it runs as ``_BilinearSample``,
+whose backward (``bilinear_sample_backward``) scatters through the
+gather-backward kernel. ``geometry.three_nn`` and
+``geometry.three_interpolate`` are the public names of the last two.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ import numpy as np
 import torch
 
 from mm3d_tpu_torch.ops import _build, dispatch
-from mm3d_tpu_torch.ops.geometry import (_start_vector, ball_query_torch,
-                                         fps_torch, index_points,
+from mm3d_tpu_torch.ops.geometry import (_gather, _start_vector,
+                                         ball_query_torch, fps_torch,
+                                         index_points,
+                                         three_interpolate_torch,
                                          three_nn_torch)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +52,10 @@ _SIGNATURES = {
     "mm3d_fused_fp": ("fused_fp", [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
     "mm3d_fused_fp_max_sparse": ("fused_fp", []),
     "mm3d_bilinear": ("bilinear", [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "mm3d_three_nn": ("three_nn", [_P] * 4 + [_I] * 3 + [_P]),
+    "mm3d_three_nn_max_sparse": ("three_nn", []),
+    "mm3d_three_interp": ("three_interp", [_I, _I] + [_P] * 4 + [_I] * 4
+                          + [_P]),
 }
 
 
@@ -409,20 +420,10 @@ def bilinear_sample_torch(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return (top * (1 - dv) + bot * dv).to(dt)
 
 
-def bilinear_sample(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Bilinear sampling of feat [B,H,W,C] (bf16 or f32) at uv [B,N,2] f32
-    pixel coordinates -> [B,N,C] in feat's dtype, zero outside the frame.
-
-    The forward only: the kernel has no backward yet (it comes with the
-    fusion_sem_seg training slice), so on the kernel path this raises when
-    a gradient is wanted for feat or uv rather than give a zero one."""
+def _bilinear_forward(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """The forward: the bilinear kernel for CUDA tensors, else the twin."""
     if dispatch.resolve(feat) == "torch":
         return bilinear_sample_torch(feat, uv)
-    if torch.is_grad_enabled() and (feat.requires_grad or uv.requires_grad):
-        raise RuntimeError(
-            "bilinear_sample: the kernel has no backward yet (it comes with "
-            "the fusion_sem_seg training slice); call it under "
-            "torch.no_grad() or on tensors that need no gradient")
     dev, dt = feat.device, feat.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"bilinear_sample takes bf16 or f32 maps, got {dt}")
@@ -448,10 +449,170 @@ def bilinear_sample(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bilinear_sample_backward(feat: torch.Tensor, uv: torch.Tensor,
+                             g: torch.Tensor, want_feat: bool, want_uv: bool):
+    """VJP of the sampling -> (d_feat [B,H,W,C] in feat's dtype or None,
+    d_uv [B,N,2] in uv's dtype or None).
+
+    The VJP of the f32 lerp of ``projection._bilinear_sample_jax``, as the
+    JAX package's ``_bilinear_bwd`` takes it (``pallas_kernels.py:1507-1517``):
+    g cast to f32 (f64 stays f64); the four corner cotangents
+    (g (1-dv)) (1-du), (g (1-dv)) du, (g dv) (1-du), (g dv) du, each zeroed
+    outside the frame; then ONE ``gather_backward`` of the [B,N,4,C] stack by
+    the corner rows [B,N,4] into the H*W rows of the map (the hand-written
+    deterministic kernel on the card, not ``index_add_``), cast to feat's
+    dtype. d_uv (sum over channels of g times the lerp's slopes; floor()
+    passes no gradient) only when ``want_uv``."""
+    B, H, W, C = feat.shape
+    acc_dt = torch.promote_types(g.dtype, torch.float32)
+    g = g.to(acc_dt)
+    u, v = uv[..., 0].to(acc_dt), uv[..., 1].to(acc_dt)
+    x0, y0 = torch.floor(u), torch.floor(v)
+    du, dv = (u - x0)[..., None], (v - y0)[..., None]
+    rows, masks = [], []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        x, y = x0 + dx, y0 + dy
+        masks.append(((x >= 0) & (x < W) & (y >= 0) & (y < H))[..., None]
+                     .to(acc_dt))
+        rows.append(y.clamp(0, H - 1).to(torch.int32) * W
+                    + x.clamp(0, W - 1).to(torch.int32))
+    d_feat = d_uv = None
+    d_top, d_bot = g * (1 - dv), g * dv
+    if want_feat:
+        corner_g = torch.stack([d_top * (1 - du) * masks[0],
+                                d_top * du * masks[1],
+                                d_bot * (1 - du) * masks[2],
+                                d_bot * du * masks[3]], dim=2)  # [B,N,4,C]
+        d_feat = gather_backward(corner_g, torch.stack(rows, dim=2), H * W)
+        d_feat = d_feat.reshape(B, H, W, C).to(feat.dtype)
+    if want_uv:
+        flat = feat.reshape(B, H * W, C)
+        c00, c10, c01, c11 = (_gather(flat, r).to(acc_dt) * m
+                              for r, m in zip(rows, masks))
+        top = c00 * (1 - du) + c10 * du
+        bot = c01 * (1 - du) + c11 * du
+        d_u = (d_top * (c10 - c00) + d_bot * (c11 - c01)).sum(-1)
+        d_v = (g * (bot - top)).sum(-1)
+        d_uv = torch.stack([d_u, d_v], dim=-1).to(uv.dtype)
+    return d_feat, d_uv
+
+
+class _BilinearSample(torch.autograd.Function):
+    """The sampling with ``bilinear_sample_backward`` as its backward, run
+    under the impl mode in force at the forward (autograd runs a CUDA
+    backward on its own thread, as for ``geometry._IndexPoints``)."""
+
+    @staticmethod
+    def forward(ctx, feat, uv):
+        ctx.save_for_backward(feat, uv)
+        ctx.impl = dispatch.get_impl()
+        return _bilinear_forward(feat, uv)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, uv = ctx.saved_tensors
+        with dispatch.use_impl(ctx.impl):
+            return bilinear_sample_backward(feat, uv, g,
+                                            ctx.needs_input_grad[0],
+                                            ctx.needs_input_grad[1])
+
+
+def bilinear_sample(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling of feat [B,H,W,C] (bf16 or f32) at uv [B,N,2] f32
+    pixel coordinates -> [B,N,C] in feat's dtype, zero outside the frame.
+
+    With a gradient wanted for feat or uv it runs as ``_BilinearSample``,
+    whose backward scatters the corner cotangents through the
+    gather-backward kernel."""
+    if torch.is_grad_enabled() and (feat.requires_grad or uv.requires_grad):
+        return _BilinearSample.apply(feat, uv)
+    return _bilinear_forward(feat, uv)
+
+
 bilinear_sample.launches = 0
 
+# --------------------------------------------------------------- three_nn
+
+
+def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """3 nearest sparse points: xyz1 [B,N,3] dense, xyz2 [B,M,3] sparse, f32,
+    3 <= M -> (d2 [B,N,3] f32 ascending, idx [B,N,3] int32), ties to the
+    lower index, d2 not clamped: ``three_nn_torch``'s contract, bit for
+    bit."""
+    if dispatch.resolve(xyz1) == "torch":
+        return three_nn_torch(xyz1, xyz2)
+    xyz1 = _f32_points("xyz1", xyz1, xyz1.device)
+    xyz2 = _f32_points("xyz2", xyz2, xyz1.device)
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    if xyz2.shape[0] != B:
+        raise ValueError("xyz1 and xyz2 differ in batch size")
+    if M < 3:
+        raise ValueError(f"three_nn needs at least 3 sparse points, got {M}")
+    limit = _fn("mm3d_three_nn_max_sparse")()
+    if M > limit:
+        raise ValueError(f"three_nn takes at most {limit} sparse points, "
+                         f"got {M}")
+    dist = torch.empty((B, N, 3), dtype=torch.float32, device=xyz1.device)
+    idx = torch.empty((B, N, 3), dtype=torch.int32, device=xyz1.device)
+    if B * N == 0:
+        return dist, idx
+    _launch("mm3d_three_nn", _ptr(xyz1), _ptr(xyz2), _ptr(dist), _ptr(idx),
+            B, N, M, _stream(xyz1))
+    three_nn.launches += 1
+    return dist, idx
+
+
+three_nn.launches = 0
+
+# ------------------------------------------------------ three_interpolate
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """The forward of the interpolation: points [B,M,C] bf16 or f32, idx
+    [B,N,3] int32 in [0, M), weight [B,N,3] -> [B,N,C] in points' dtype,
+    ``three_interpolate_torch``'s contract bit for bit. The gradient is
+    ``geometry.three_interpolate``'s."""
+    if dispatch.resolve(points) == "torch":
+        return three_interpolate_torch(points, idx, weight)
+    dev, dt = points.device, points.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"three_interpolate takes bf16 or f32 points, "
+                        f"got {dt}")
+    if points.dim() != 3:
+        raise ValueError(f"points must be [B,M,C], got {tuple(points.shape)}")
+    B, M, C = points.shape
+    for name, t in (("idx", idx), ("weight", weight)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dim() != 3 or t.shape[0] != B or t.shape[-1] != 3:
+            raise ValueError(f"{name} must be [{B},N,3], got "
+                             f"{tuple(t.shape)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if weight.shape != idx.shape:
+        raise ValueError(f"weight {tuple(weight.shape)} does not match idx "
+                         f"{tuple(idx.shape)}")
+    N = idx.shape[1]
+    points = points.contiguous()
+    idx = idx.contiguous()
+    # the twin's weights: rounded to the points' dtype, used in f32
+    w = weight.to(dt).to(torch.float32).contiguous()
+    out = torch.empty((B, N, C), dtype=dt, device=dev)
+    if B * N * C == 0:
+        return out
+    _launch("mm3d_three_interp", int(dt == torch.bfloat16),
+            _vec_ok(C, points, out), _ptr(points), _ptr(idx), _ptr(w),
+            _ptr(out), B, N, M, C, _stream(points))
+    three_interpolate.launches += 1
+    return out
+
+
+three_interpolate.launches = 0
+
 KERNELS = (farthest_point_sample, query_ball_point, fused_sa, gather_backward,
-           fused_fp, bilinear_sample)
+           fused_fp, bilinear_sample, three_nn, three_interpolate)
 
 
 def reset_launches() -> None:

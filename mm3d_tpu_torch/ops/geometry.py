@@ -1,12 +1,18 @@
 """Plain PyTorch geometry ops (counterpart of ``mm3d_tpu/ops/geometry.py``).
 
 These are the plain versions of the port's kernels: ``fps_torch`` of the FPS
-kernel, ``ball_query_torch`` of the ball-query kernel and ``three_nn_torch``
-of the 3-NN selection inside the fused FP kernel. They run on any device and
-are the semantic reference the kernels are held to, bit-exactly for the
-index outputs. Their rounding is spelled out: dot products over the
-three coordinates are summed left to right as separate multiplies and adds,
-so no FMA contraction and no TF32 matmul can move a boundary decision.
+kernel, ``ball_query_torch`` of the ball-query kernel, ``three_nn_torch`` of
+the three_nn kernel (and of the 3-NN selection inside the fused FP kernel)
+and ``three_interpolate_torch`` of the three_interpolate kernel. They run on
+any device and are the semantic reference the kernels are held to,
+bit-exactly for the index outputs. Their rounding is spelled out: dot
+products over the three coordinates are summed left to right as separate
+multiplies and adds, so no FMA contraction and no TF32 matmul can move a
+boundary decision.
+
+``three_nn`` and ``three_interpolate`` are the dispatching entry points of
+the JAX package's names (``mm3d_tpu/ops/geometry.py:222-232,266-278``): the
+kernel for CUDA tensors, the twin for CPU tensors (``ops.dispatch``).
 
 Conventions as in the JAX package: points are channels-last ``[B, N, C]``,
 indices are int32.
@@ -169,11 +175,84 @@ def interpolation_weights(dists: torch.Tensor) -> torch.Tensor:
 
 def three_interpolate_torch(points: torch.Tensor, idx: torch.Tensor,
                             weight: torch.Tensor) -> torch.Tensor:
-    """points [B,M,C], idx/weight [B,N,3] -> [B,N,C]: sum_k w_k points[idx_k].
+    """Plain twin of the three_interpolate kernel: points [B,M,C], idx
+    [B,N,3] int32, weight [B,N,3] -> [B,N,C] in points' dtype.
 
-    The gather is ``index_points``, so its backward is the gather-backward
-    kernel."""
-    return (index_points(points, idx) * weight[..., None]).sum(dim=2)
+    (w0 p0 + w1 p1) + w2 p2 with p_k = points[idx_k], w_k the weight rounded
+    to points' dtype, the products and sums in f32 (f64 for f64 points) and
+    one rounding at the end: in bf16 the rounding of the TPU kernel
+    (``_three_interp_kernel``, ``pallas_kernels.py:1342-1384``), in f32 and
+    f64 exact products summed in this order. No autograd of its own: the
+    gradient is ``_ThreeInterpolate``'s."""
+    dt = points.dtype
+    acc_dt = torch.promote_types(dt, torch.float32)
+    w = weight.to(dt).to(acc_dt)
+    g = _gather(points, idx).to(acc_dt)  # [B,N,3,C]
+    acc = w[..., 0:1] * g[:, :, 0] + w[..., 1:2] * g[:, :, 1]
+    return (acc + w[..., 2:3] * g[:, :, 2]).to(dt)
+
+
+def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3 nearest sparse points of each dense point: xyz1 [B,N,3], xyz2
+    [B,M,3] f32 -> (d2 [B,N,3] ascending, idx [B,N,3] int32), the contract
+    of ``three_nn_torch``; the three_nn kernel for CUDA tensors."""
+    from mm3d_tpu_torch.ops import cuda_kernels  # imports this module
+    return cuda_kernels.three_nn(xyz1, xyz2)
+
+
+class _ThreeInterpolate(torch.autograd.Function):
+    """three_interpolate with the VJP of the JAX package's
+    ``_three_interp_bwd`` (``pallas_kernels.py:1442-1453``): the cotangent,
+    cast to the twin's output dtype, gives
+
+        d_points = gather_backward(g[:, :, None, :] * w[..., None], idx, M)
+        d_weight = sum_c g * points[idx]      (only when wanted)
+
+    with w the weight in points' dtype. ``gather_backward`` is the
+    hand-written kernel on the card. The forward and the backward run under
+    the impl mode in force at the forward (autograd runs a CUDA backward on
+    its own thread, as for ``_IndexPoints``)."""
+
+    @staticmethod
+    def forward(ctx, points, idx, weight):
+        from mm3d_tpu_torch.ops import cuda_kernels
+        ctx.save_for_backward(points, idx, weight)
+        ctx.impl = dispatch.get_impl()
+        return cuda_kernels.three_interpolate(points, idx, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        from mm3d_tpu_torch.ops import cuda_kernels
+        points, idx, weight = ctx.saved_tensors
+        dt = points.dtype
+        g = g.to(dt)
+        d_points = d_weight = None
+        with dispatch.use_impl(ctx.impl):
+            if ctx.needs_input_grad[0]:
+                gw = g[:, :, None, :] * weight.to(dt)[..., None]  # [B,N,3,C]
+                d_points = cuda_kernels.gather_backward(gw, idx,
+                                                        points.shape[1])
+        if ctx.needs_input_grad[2]:
+            acc_dt = torch.promote_types(dt, torch.float32)
+            d_weight = (g[:, :, None, :].to(acc_dt)
+                        * _gather(points, idx).to(acc_dt)).sum(-1)
+            d_weight = d_weight.to(weight.dtype)
+        return d_points, None, d_weight
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Weighted 3-NN interpolation, points [B,M,C] (bf16 or f32 on the
+    card), idx [B,N,3] int32, weight [B,N,3] -> [B,N,C] in points' dtype
+    (the contract of ``three_interpolate_torch``); the three_interpolate
+    kernel for CUDA tensors. With a gradient wanted it runs as
+    ``_ThreeInterpolate``, whose d_points is the gather-backward kernel."""
+    if torch.is_grad_enabled() and (points.requires_grad
+                                    or weight.requires_grad):
+        return _ThreeInterpolate.apply(points, idx, weight)
+    from mm3d_tpu_torch.ops import cuda_kernels
+    return cuda_kernels.three_interpolate(points, idx, weight)
 
 
 def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]

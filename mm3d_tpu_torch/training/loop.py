@@ -1,5 +1,6 @@
 """Trainer: epoch loop and evaluation (counterpart of
-``mm3d_tpu/training/loop.py``) for the ``fusion_cls`` task.
+``mm3d_tpu/training/loop.py``) for the ``fusion_cls`` and ``fusion_semseg``
+tasks (``TrainConfig(model="fusion_cls" | "fusion_sem_seg", ...)``).
 
 The steps run on the Trainer's device (``cuda`` unless the caller passes
 ``device="cpu"``); the loop schedules the lr and BN momentum per epoch,
@@ -31,6 +32,11 @@ from mm3d_tpu_torch.training import schedules, steps
 from mm3d_tpu_torch.training.state import make_optimizer
 from mm3d_tpu_torch.utils import metrics as M
 
+# per-task headline metric: the best-of-run value ``fit`` reports
+# (``loop.py:34-38`` of the JAX package)
+BEST_METRIC = {"fusion_cls": "instance_acc", "fusion_semseg": "miou"}
+
+
 @dataclasses.dataclass
 class TrainConfig:
     model: str = "fusion_cls"
@@ -46,6 +52,8 @@ class TrainConfig:
     bn_init_momentum: float = 0.1
     normal_channel: bool = False
     num_class: int = 40
+    # fusion_semseg's classes (S3DIS: 13)
+    seg_classes: int = 13
     seed: int = 0
     train_size: int = 512
     test_size: int = 128
@@ -68,17 +76,27 @@ class TrainConfig:
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
-def build_datasets(cfg: TrainConfig):
-    """fusion_cls's synthetic datasets, shaped like the real ones: same class
-    definitions (seed), disjoint instance streams for train and test."""
+def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
+    """The task's synthetic datasets, shaped like the real ones: same class
+    definitions (seed), disjoint instance streams for train and test.
+    ``fusion_cls``: ModelNet-style clouds; ``fusion_semseg``: S3DIS-style
+    blocks of ``cfg.npoint`` 9-dim points with per-point labels; each with
+    its rendered view and camera."""
 
-    def mk(size, split):
-        return syn.SyntheticMultimodal(
-            base=syn.SyntheticModelNet(
+    def base(size, split):
+        if task == "fusion_semseg":
+            return syn.SyntheticIndoorScene(npoints=cfg.npoint, size=size,
+                                            seed=cfg.seed, split=split)
+        if task == "fusion_cls":
+            return syn.SyntheticModelNet(
                 num_classes=cfg.num_class, npoints=cfg.npoint,
                 normals=cfg.normal_channel, size=size, seed=cfg.seed,
-                split=split),
-            hw=cfg.image_hw, seed=cfg.seed)
+                split=split)
+        raise ValueError(f"no synthetic datasets for task {task!r}")
+
+    def mk(size, split):
+        return syn.SyntheticMultimodal(base=base(size, split),
+                                       hw=cfg.image_hw, seed=cfg.seed)
 
     return mk(cfg.train_size, "train"), mk(cfg.test_size, "test")
 
@@ -96,11 +114,11 @@ class Trainer:
                 raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
         self.spec = get_model(cfg.model)
         self.task = self.spec.task
-        if self.task != "fusion_cls":
+        if self.task not in steps.TASKS:
             raise NotImplementedError(
                 f"Trainer: task {self.task!r} is not ported yet")
         if train_ds is None or test_ds is None:
-            syn_tr, syn_te = build_datasets(cfg)
+            syn_tr, syn_te = build_datasets(cfg, self.task)
             train_ds = train_ds if train_ds is not None else syn_tr
             test_ds = test_ds if test_ds is not None else syn_te
         self.train_pipe = DataPipeline(train_ds, cfg.batch_size, shuffle=True,
@@ -110,9 +128,14 @@ class Trainer:
         self.test_pipe = DataPipeline(test_ds, cfg.batch_size, shuffle=False,
                                       to_device=self.device,
                                       pad_remainder=True)
-        kwargs = {"num_class": cfg.num_class,
-                  "normal_channel": cfg.normal_channel,
-                  "fusion": cfg.fusion}
+        if self.task == "fusion_semseg":
+            self.num_classes = cfg.seg_classes
+            kwargs = {"num_class": cfg.seg_classes, "fusion": cfg.fusion}
+        else:
+            self.num_classes = cfg.num_class
+            kwargs = {"num_class": cfg.num_class,
+                      "normal_channel": cfg.normal_channel,
+                      "fusion": cfg.fusion}
         self.model = init_params(
             self.spec.builder(dtype=_DTYPES[cfg.dtype], **kwargs),
             cfg.seed).to(self.device)
@@ -148,7 +171,7 @@ class Trainer:
             self.model, self.task, augment_names=augs,
             generator=self.generator) if self._bn_refresh_n else None)
         self.eval_step = steps.make_eval_step(
-            self.eval_model, self.spec.loss, self.task, cfg.num_class,
+            self.eval_model, self.spec.loss, self.task, self.num_classes,
             class_weights=cw)
         self.history = []
 
@@ -200,13 +223,20 @@ class Trainer:
             total_count += count
             cm = m["cm"] if cm is None else cm + m["cm"]
         lw = sum(w for _, w in losses)
-        return {"eval_loss": (sum(l * w for l, w in losses) / lw
-                              if lw else 0.0),
-                "instance_acc": total_correct / max(total_count, 1),
-                "class_acc": float(M.per_class_accuracy(cm))}
+        out = {"eval_loss": (sum(l * w for l, w in losses) / lw
+                             if lw else 0.0)}
+        if self.task == "fusion_semseg":
+            # per point: count is valid rows x N
+            out["point_acc"] = total_correct / max(total_count, 1)
+            out["miou"] = float(M.iou_from_confusion(cm)[1])
+        else:
+            out["instance_acc"] = total_correct / max(total_count, 1)
+            out["class_acc"] = float(M.per_class_accuracy(cm))
+        return out
 
     def fit(self) -> dict:
         best = -1.0
+        best_key = BEST_METRIC[self.task]
         final_eval = {}
         for epoch in range(self.cfg.epochs):
             tm = self.train_epoch(epoch)
@@ -214,7 +244,7 @@ class Trainer:
             if (epoch + 1) % self.cfg.eval_every == 0:
                 em = self.evaluate()
                 final_eval = em
-                best = max(best, em["instance_acc"])
+                best = max(best, em[best_key])
             self.history.append({"epoch": epoch, "train": tm, "eval": em})
-        final_eval["best_instance_acc"] = best
+        final_eval[f"best_{best_key}"] = best
         return final_eval

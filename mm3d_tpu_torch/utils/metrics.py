@@ -1,5 +1,6 @@
-"""Classification metrics on the device (counterpart of
-``mm3d_tpu/utils/metrics.py``, the parts ``fusion_cls`` uses).
+"""Classification and segmentation metrics on the device (counterpart of
+``mm3d_tpu/utils/metrics.py``, the parts ``fusion_cls`` and
+``fusion_semseg`` use).
 
 Every metric is a tensor reduction, so eval stays on the device and only
 scalars and a confusion matrix cross to the host per epoch.
@@ -7,7 +8,7 @@ scalars and a confusion matrix cross to the host per epoch.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,3 +43,17 @@ def per_class_accuracy(cm: torch.Tensor) -> torch.Tensor:
                                   device=cm.device))
     present = (support > 0).float()
     return torch.sum(acc * present) / torch.clamp(present.sum(), min=1.0)
+
+
+def iou_from_confusion(cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class IoU [C] and the mean IoU over classes with a nonzero union
+    (``metrics.py:53-62``): tp / (tp + fp + fn), 0 where the union is 0."""
+    tp = torch.diagonal(cm).float()
+    fp = cm.sum(dim=0).float() - tp
+    fn = cm.sum(dim=1).float() - tp
+    union = tp + fp + fn
+    iou = torch.where(union > 0, tp / torch.clamp(union, min=1.0),
+                      torch.zeros_like(union))
+    present = (union > 0).float()
+    miou = torch.sum(iou * present) / torch.clamp(present.sum(), min=1.0)
+    return iou, miou

@@ -1,9 +1,9 @@
 """Where the time of serving and of training goes on the card.
 
 Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the eval forward
-served by ``make_predictor`` (``--mode serve``, ``fusion_cls`` or
-``fusion_sem_seg``) and of one ``fusion_cls`` train step of
-``steps.make_train_step`` (``--mode train``):
+served by ``make_predictor`` (``--mode serve``) and of one train step of
+``steps.make_train_step`` (``--mode train``), each for ``fusion_cls`` or
+``fusion_sem_seg``:
 
 * ``stage_times`` -- CUDA events at the start and end of each stage of the
   model, recorded by forward hooks: for ``fusion_cls`` SA1, SA2, SA3 and the
@@ -11,12 +11,14 @@ served by ``make_predictor`` (``--mode serve``, ``fusion_cls`` or
   the total less the stages; for ``fusion_sem_seg`` SA1, SA2, FP2, FP1, the
   image CNN, projection + sampling (from the CNN's end to the head's start,
   the fusion included) and the head (head MLP to log-softmax);
-* ``train_stage_times`` -- the same for the train step's forward, plus its
-  backward: an event where each stage's backward starts (a backward
-  pre-hook, when the gradient of the stage's output is ready), each
-  stage's span running to the next start (the image and point branches are
-  independent, so the engine may interleave them), and the augmentation and
-  optimizer step;
+* ``train_stage_times`` -- the same for the train step's forward (for
+  ``fusion_sem_seg`` the head MLP is a stage of its own), plus its backward:
+  an event where each stage's backward starts (a backward pre-hook, when
+  the gradient of the stage's output is ready; for ``fusion_sem_seg`` the
+  sampling's backward starts when the head MLP's input gradient is ready),
+  each stage's span running to the next start (the image and point branches
+  are independent, so the engine may interleave them), and the
+  augmentation and optimizer step;
 * ``kernel_table`` -- ``torch.profiler`` over a few calls: device time by
   kernel name, and the share of the window in which the device ran no
   kernel.
@@ -29,8 +31,8 @@ Run on one card from the repository root::
 Serving ``fusion_cls`` takes B=128 clouds of 1024 points with 64x64 images
 and 40 classes; serving ``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks
 of 2048 points with their 64x64 rendered views and cameras and 13 classes;
-training B=24 (random seeded weights with non-trivial BN statistics, seeded
-inputs). It prints one JSON line and writes it to
+training B=24 of the same inputs (random seeded weights, seeded inputs;
+``fusion_sem_seg`` with its calib-aware Z rotation). It prints one JSON line and writes it to
 ``profile_<mode>_<model>_<dtype>.json`` in the ``--out`` directory. It fails
 without a card.
 """
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import time
@@ -106,18 +109,30 @@ def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
             "sa3": whole(pt.sa3), "image": whole(model.image_trunk)}
 
 
+def _train_stages(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    """The modules whose forward and backward ``train_stage_times`` marks."""
+    pt = model.point_trunk
+    if hasattr(pt, "fp1"):  # FusionSemSeg
+        return {"sa1": pt.sa1, "sa2": pt.sa2, "fp2": pt.fp2, "fp1": pt.fp1,
+                "image": model.image_trunk, "head_mlp": model.head_mlp}
+    return {"sa1": pt.sa1, "sa2": pt.sa2, "sa3": pt.sa3,
+            "image": model.image_trunk}
+
+
 def train_stage_times(model: torch.nn.Module,
                       optimizer: torch.optim.Optimizer,
                       step: Callable[[], object],
                       reps: int = 10) -> Dict[str, float]:
     """Median device ms of one train step by part: 'augment'; the forward
-    stages as in ``stage_times`` ('fwd_*'); the backward from its start to
-    the first stage's backward ('bwd_head') and each stage's backward
-    ('bwd_*'); 'optimizer'; and 'total'. ``step`` must run the model once,
-    the backward and ``optimizer.step`` (a step of
-    ``steps.make_train_step`` does)."""
-    stages = {"sa1": model.point_trunk.sa1, "sa2": model.point_trunk.sa2,
-              "sa3": model.point_trunk.sa3, "image": model.image_trunk}
+    stages as in ``stage_times`` ('fwd_*'; for a FusionSemSeg also
+    'fwd_sampling', from the CNN's end to the head MLP's start); the
+    backward from its start to the first stage's backward ('bwd_head') and
+    each stage's backward ('bwd_*', 'bwd_sampling' from the head MLP's input
+    gradient to the CNN's output gradient); 'optimizer'; and 'total'.
+    ``step`` must run the model once, the backward and ``optimizer.step``
+    (a step of ``steps.make_train_step`` does)."""
+    stages = _train_stages(model)
+    semseg = "fp1" in stages
     marks: Dict[str, list] = {}
 
     def mark(name):
@@ -137,6 +152,11 @@ def train_stage_times(model: torch.nn.Module,
                 lambda m, a, o, name=name: mark(f"fwd_{name}_end")),
             mod.register_full_backward_pre_hook(
                 lambda m, g, name=name: mark(f"bwd_{name}"))]
+    bwd_names = list(stages)
+    if semseg:
+        handles.append(model.head_mlp.register_full_backward_hook(
+            lambda m, gi, go: mark("bwd_sampling")))
+        bwd_names.append("sampling")
     totals = []
     try:
         step()  # warm-up
@@ -157,15 +177,20 @@ def train_stage_times(model: torch.nn.Module,
     for name in stages:
         out[f"fwd_{name}"] = med(marks[f"fwd_{name}_start"],
                                  marks[f"fwd_{name}_end"])
+    fwd = [f"fwd_{n}" for n in stages]
+    if semseg:
+        out["fwd_sampling"] = med(marks["fwd_image_end"],
+                                  marks["fwd_head_mlp_start"])
+        fwd.append("fwd_sampling")
     out["fwd_total"] = med(marks["fwd_start"], marks["fwd_end"])
-    out["fwd_rest"] = out["fwd_total"] - sum(out[f"fwd_{n}"] for n in stages)
+    out["fwd_rest"] = out["fwd_total"] - sum(out[k] for k in fwd)
     # per step, order the stages' backward starts in time; a stage runs to
     # the next start, the last one to the optimizer's start
-    spans: Dict[str, list] = {f"bwd_{n}": [] for n in ("head", *stages)}
+    spans: Dict[str, list] = {f"bwd_{n}": [] for n in ("head", *bwd_names)}
     for i in range(reps):
         t0 = marks["bwd_start"][i]
         starts = sorted((t0.elapsed_time(marks[f"bwd_{n}"][i]), n)
-                        for n in stages)
+                        for n in bwd_names)
         starts.append((t0.elapsed_time(marks["opt_start"][i]), None))
         spans["bwd_head"].append(starts[0][0])
         for (t, n), (t_next, _) in zip(starts, starts[1:]):
@@ -201,13 +226,24 @@ def _profile(call: Callable[[], object], reps: int):
 
 def device_ms(call: Callable[[], object], reps: int = 10) -> float:
     """Device time per call: the summed durations of the kernels and copies
-    one call puts on the card (torch.profiler, mean of ``reps`` calls), the
-    host's launch time excluded. Raises if the profiler saw no device
+    one call puts on the card (torch.profiler over ``reps`` calls), the
+    host's launch time excluded.
+
+    Summed per kernel name as its mean duration times its launches per call
+    (its count over ``reps``, rounded up): every call puts the same work on
+    the card, and the profiler can drop an activity record (seen on the
+    card: one in forty, and a window read 14x low), which then moves
+    neither the mean nor the count per call. With no record lost this is
+    the plain sum over ``reps``. Raises if the profiler saw no device
     work."""
     events, _ = _profile(call, reps)
     if not events:
         raise RuntimeError("device_ms: the profiler recorded no device work")
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    by_name: Dict[str, list] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    return sum(float(np.mean(d)) * math.ceil(len(d) / reps)
+               for d in by_name.values()) / 1e3
 
 
 def kernel_table(call: Callable[[], object], reps: int = 3,
@@ -283,28 +319,37 @@ def _serve(model_name: str, dtype, batch: int) -> dict:
             "profile": kernel_table(call)}
 
 
-def _train(dtype, batch: int) -> dict:
+def _train(model_name: str, dtype, batch: int) -> dict:
     from mm3d_tpu_torch.data.augment import TASK_PIPELINES
+    from mm3d_tpu_torch.data.synthetic import semseg_request
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import steps
     from mm3d_tpu_torch.training.state import make_optimizer
 
-    spec = get_model("fusion_cls")
-    model = init_params(spec.builder(num_class=40, dtype=dtype), 0).cuda()
+    spec = get_model(model_name)
+    ncls = 13 if model_name == "fusion_sem_seg" else 40
+    model = init_params(spec.builder(num_class=ncls, dtype=dtype), 0).cuda()
     opt = make_optimizer(model.parameters(), "adam", 1e-4)
     step = steps.make_train_step(
-        model, spec.loss, opt, "fusion_cls",
-        augment_names=TASK_PIPELINES["fusion_cls"],
+        model, spec.loss, opt, spec.task,
+        augment_names=TASK_PIPELINES[spec.task],
         generator=torch.Generator("cuda").manual_seed(1))
     r = np.random.RandomState(0)
-    eye = np.eye(3, dtype=np.float32)
-    batch_ = {k: torch.from_numpy(a).cuda() for k, a in {
-        "points": _clouds(r, batch),
-        "image": r.rand(batch, 64, 64, 3).astype(np.float32),
-        "K": np.broadcast_to(eye * 32, (batch, 3, 3)).copy(),
-        "R": np.broadcast_to(eye, (batch, 3, 3)).copy(),
-        "t": np.tile(np.array([0, 0, 3], np.float32), (batch, 1)),
-        "label": r.randint(0, 40, batch).astype(np.int32)}.items()}
+    if model_name == "fusion_sem_seg":
+        names = ("points", "image", "K", "R", "t")
+        arrays = dict(zip(names, semseg_request(batch)))
+        arrays["seg"] = r.randint(0, ncls, arrays["points"].shape[:2]
+                                  ).astype(np.int32)
+    else:
+        eye = np.eye(3, dtype=np.float32)
+        arrays = {
+            "points": _clouds(r, batch),
+            "image": r.rand(batch, 64, 64, 3).astype(np.float32),
+            "K": np.broadcast_to(eye * 32, (batch, 3, 3)).copy(),
+            "R": np.broadcast_to(eye, (batch, 3, 3)).copy(),
+            "t": np.tile(np.array([0, 0, 3], np.float32), (batch, 1)),
+            "label": r.randint(0, ncls, batch).astype(np.int32)}
+    batch_ = {k: torch.from_numpy(a).cuda() for k, a in arrays.items()}
 
     def call():
         return step(batch_, 1e-3, 0.1)
@@ -317,8 +362,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
     p.add_argument("--model", choices=("fusion_cls", "fusion_sem_seg"),
-                   default="fusion_cls",
-                   help="the served model (training: fusion_cls only)")
+                   default="fusion_cls")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
     p.add_argument("--batch", type=int, default=None,
@@ -334,15 +378,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    if args.mode == "train" and args.model != "fusion_cls":
-        raise SystemExit("profiling: training is ported for fusion_cls only")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if args.mode == "serve":
         batch = args.batch or (16 if args.model == "fusion_sem_seg" else 128)
         run = _serve(args.model, dtype, batch)
     else:
         batch = args.batch or 24
-        run = _train(dtype, batch)
+        run = _train(args.model, dtype, batch)
     result = {"card": card, "mode": args.mode, "model": args.model,
               "dtype": args.dtype, "batch": batch, **run}
     os.makedirs(args.out, exist_ok=True)

@@ -104,8 +104,63 @@ def test_draws_come_from_the_generator():
     assert bool(((scale >= 0.8) & (scale <= 1.25)).all())
     shift = aug.draw_shift(torch.Generator().manual_seed(3), b)
     assert bool((shift.abs() <= 0.1).all())
-    with pytest.raises(NotImplementedError, match="rotate"):
-        aug.augment_fusion_batch(None, b, R, ("rotate_point_cloud_z",))
+    # the Z rotations are ported (they raised before fusion_semseg's
+    # training): their angles come from the generator too, and only the
+    # calib-aware one moves R
+    semseg = aug.TASK_PIPELINES["fusion_semseg"]
+    a, Ra = aug.augment_fusion_batch(torch.Generator().manual_seed(1), b, R,
+                                     semseg)
+    c, Rc = aug.augment_fusion_batch(torch.Generator().manual_seed(1), b, R,
+                                     semseg)
+    d, Rd = aug.augment_fusion_batch(torch.Generator().manual_seed(2), b, R,
+                                     semseg)
+    assert torch.equal(a, c) and torch.equal(Ra, Rc)
+    assert not torch.equal(a, d) and not torch.equal(Ra, Rd)
+    e, Re = aug.augment_fusion_batch(torch.Generator().manual_seed(1), b, R,
+                                     ("rotate_point_cloud_z",))
+    assert torch.equal(e, a) and torch.equal(Re, R)
+    angle = aug.draw_rotation(torch.Generator().manual_seed(3), b)
+    assert bool(((angle >= 0) & (angle <= 2 * np.pi)).all())
+    with pytest.raises(NotImplementedError, match="jitter"):
+        aug.augment_fusion_batch(None, b, R, ("jitter_point_cloud",))
+
+
+def test_rotate_point_cloud_z_with_calib_matches_jax():
+    """For the JAX op's own angles: the rotated points and the rewritten R
+    equal the JAX op's (the products round alike; 1e-6 for the last-bit
+    rounding of sin/cos and of XLA's three-term dot), the TASK_PIPELINES
+    entry is the JAX one, and the projected pixels do not move."""
+    from mm3d_tpu.data import synthetic as jsyn_
+    from mm3d_tpu_torch.ops import projection
+    assert (aug.TASK_PIPELINES["fusion_semseg"]
+            == jaug.TASK_PIPELINES["fusion_semseg"])
+    r = np.random.RandomState(8)
+    b = (r.randn(3, 50, 9) * 1.5).astype(np.float32)
+    Rt = [jsyn_.random_viewpoint_extrinsics(r) for _ in range(3)]
+    R = np.stack([x for x, _ in Rt])
+    t = np.stack([y for _, y in Rt])
+    K = np.stack([jsyn_.default_intrinsics((32, 32))] * 3)
+    key = jax.random.PRNGKey(9)
+    angle = np.array(jax.random.uniform(key, (3,)) * 2.0 * jnp.pi)
+    want, want_R = jaug.rotate_point_cloud_z_with_calib(key, jnp.asarray(b),
+                                                        jnp.asarray(R))
+    got, got_R = aug.rotate_point_cloud_z_with_calib(
+        torch.from_numpy(b), torch.from_numpy(R), torch.from_numpy(angle))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(got_R.numpy(), np.asarray(want_R), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[..., 2:], b[..., 2:])
+    uv0, z0 = projection.project_points(torch.from_numpy(b[..., :3]),
+                                        *map(torch.from_numpy, (K, R, t)))
+    uv1, z1 = projection.project_points(got[..., :3], torch.from_numpy(K),
+                                        got_R, torch.from_numpy(t))
+    # the points the camera sees keep their pixel (to f32 rounding; points
+    # near the camera plane, far outside the frame, magnify it by 1/z)
+    seen = (z0 > 0) & (uv0 >= 0).all(-1) & (uv0 <= 31).all(-1)
+    assert 0 < float(seen.float().mean()) < 1
+    assert float((uv1 - uv0).abs()[seen].max()) < 1e-4
+    assert float((z1 - z0).abs().max()) < 1e-5
 
 
 # ------------------------------------------------------------ synthetic

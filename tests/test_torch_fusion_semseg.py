@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _helpers import jit_init
+from test_torch_ops import fake_kernels
 from mm3d_tpu.models import get_model as jax_get_model
 from mm3d_tpu.models.pointnet2 import FeaturePropagation as JaxFP
 from mm3d_tpu.ops import dispatch as jdispatch
@@ -23,7 +24,7 @@ from mm3d_tpu_torch.data import synthetic as syn
 from mm3d_tpu_torch.models import get_model, init_params, pointnet2
 from mm3d_tpu_torch.ops import dispatch
 from mm3d_tpu_torch.training import agreement, make_predictor
-from mm3d_tpu_torch.utils import load_jax_variables
+from mm3d_tpu_torch.utils import load_jax_variables, to_jax_tree
 
 NUM_CLASS = 13
 
@@ -129,15 +130,71 @@ def test_feature_propagation_single_sparse_point_and_no_skip():
 
 def test_feature_propagation_unfused_raises_on_the_kernel_path(
         fp_case, monkeypatch):
-    """Training's unfused branch needs the three_nn kernel (next slice):
-    on the kernel path it raises rather than run the plain selection."""
-    args, _, _ = fp_case
+    """Training's unfused branch runs on the kernel path now (it raised
+    until the three_nn kernel): one train forward and backward launches
+    three_nn, three_interpolate and the gather backward (d of the sparse
+    rows) once each and gives the plain path's output and gradients."""
+    args, _, v = fp_case
     port = pointnet2.FeaturePropagation(5, 12, (24, 16))  # train mode
-    out = port(*map(torch.from_numpy, args))  # plain twins on the CPU
-    monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
-    with pytest.raises(NotImplementedError, match="three_nn kernel"):
-        port(*map(torch.from_numpy, args))
-    assert out.shape == (2, 96, 16) and bool(torch.isfinite(out).all())
+    load_jax_variables(port, _np_tree(v))
+    co = torch.from_numpy(np.random.RandomState(3).randn(2, 96, 16)
+                          .astype(np.float32))
+
+    def run():
+        port.zero_grad()
+        f2 = torch.from_numpy(args[3]).requires_grad_(True)
+        out = port(*map(torch.from_numpy, args[:3]), f2)
+        out.backward(co)
+        return out.detach(), f2.grad, port.proj_kernel.grad.clone()
+
+    with dispatch.use_impl("torch"):
+        want = run()
+    ck = fake_kernels(monkeypatch)
+    got = run()
+    assert {k.__name__: k.launches for k in ck.KERNELS if k.launches} == {
+        "three_nn": 1, "three_interpolate": 1, "gather_backward": 1}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].shape == (2, 96, 16) and bool(torch.isfinite(got[0]).all())
+
+
+def test_feature_propagation_train_matches_jax(fp_case):
+    """Train mode in fp32 (the unfused branch): output, the new BN
+    statistics, every parameter gradient and the input gradients (through
+    three_interpolate's d_points and the gather backward) against the JAX
+    module's, at 1e-4."""
+    args, fp, v = fp_case
+    co = np.random.RandomState(4).randn(2, 96, 16).astype(np.float32)
+
+    def loss(params, f1, f2):
+        out, mut = fp.apply({"params": params,
+                             "batch_stats": v["batch_stats"]},
+                            jnp.asarray(args[0]), jnp.asarray(args[1]), f1,
+                            f2, train=True, bn_momentum=0.2,
+                            mutable=["batch_stats"])
+        return jnp.sum(out * co), (out, mut["batch_stats"])
+
+    with jax.default_matmul_precision("float32"):
+        (_, (out, bs)), (gp, g1, g2) = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1, 2), has_aux=True))(
+                v["params"], jnp.asarray(args[2]), jnp.asarray(args[3]))
+    port = pointnet2.FeaturePropagation(5, 12, (24, 16))
+    load_jax_variables(port, _np_tree(v))
+    t1, t2 = (torch.from_numpy(a).requires_grad_(True) for a in args[2:])
+    tout = port(*map(torch.from_numpy, args[:2]), t1, t2, bn_momentum=0.2)
+    (tout * torch.from_numpy(co)).sum().backward()
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(out), **tol)
+    got = to_jax_tree(port, {n: p.grad for n, p in port.named_parameters()})
+    for tree, want in ((got["params"], gp),
+                       (to_jax_tree(port)["batch_stats"], bs)):
+        flat = dict(jax.tree_util.tree_flatten_with_path(tree)[0])
+        for path, w in jax.tree_util.tree_flatten_with_path(want)[0]:
+            np.testing.assert_allclose(flat[path], np.asarray(w),
+                                       err_msg=jax.tree_util.keystr(path),
+                                       **tol)
+    np.testing.assert_allclose(t1.grad.numpy(), np.asarray(g1), **tol)
+    np.testing.assert_allclose(t2.grad.numpy(), np.asarray(g2), **tol)
 
 
 # ------------------------------------------------------- fusion_sem_seg

@@ -27,6 +27,36 @@ def _cloud(seed, B, N, scale=1.0):
         np.float32)
 
 
+def fake_kernels(monkeypatch):
+    """The kernel path of the wrappers, on the CPU: ``dispatch.resolve``
+    answers 'cuda', and each launch runs the kernel's plain twin into the
+    outputs the wrapper allocated (``_ptr`` hands the tensors through). The
+    wrappers' checks, allocations and launch counts run as on the card."""
+    from mm3d_tpu_torch.ops import cuda_kernels as ck
+    monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
+    monkeypatch.setattr(ck, "_ptr", lambda t: t)
+    monkeypatch.setattr(ck, "_stream", lambda t: None)
+    monkeypatch.setattr(ck, "_fn", lambda symbol: (lambda: 1 << 20))
+
+    def launch(symbol, *a):
+        if symbol == "mm3d_three_nn":
+            d, i = tops.three_nn_torch(a[0], a[1])
+            a[2].copy_(d)
+            a[3].copy_(i)
+        elif symbol == "mm3d_three_interp":
+            a[5].copy_(tops.three_interpolate_torch(a[2], a[3], a[4]))
+        elif symbol == "mm3d_gather_bwd":
+            a[5].copy_(tops.gather_backward_torch(a[1], a[2], a[8]))
+        elif symbol == "mm3d_bilinear":
+            a[4].copy_(tops.bilinear_sample_torch(a[2], a[3]))
+        else:
+            raise NotImplementedError(symbol)
+
+    monkeypatch.setattr(ck, "_launch", launch)
+    ck.reset_launches()
+    return ck
+
+
 # ------------------------------------------------------------------ FPS
 
 
@@ -335,12 +365,18 @@ def _fp_inputs(seed, B, N, M, C1, dup=False, grid=False):
     return xyz1, xyz2, pre, skip
 
 
-@pytest.mark.parametrize("case", ["random", "duplicates", "grid_ties"])
+@pytest.mark.parametrize("case", ["random", "duplicates", "grid_ties",
+                                  "grid16"])
 def test_three_nn_bit_exact(case):
+    """The plain twin and the dispatching entry point (the kernel's
+    contract) against _three_nn_jax and three_nn_pallas (interpret)."""
     if case == "random":
         xyz1, xyz2 = _cloud(7, 2, 96), _cloud(8, 2, 40)
     elif case == "duplicates":
         xyz1, xyz2, _, _ = _fp_inputs(1, 1, 64, 32, 4, dup=True)
+    elif case == "grid16":
+        # the 1/16 grid: exact distances, full of ties
+        xyz1, xyz2, _, _ = _fp_inputs(4, 2, 80, 40, 4, grid=True)
     else:
         # integer lattice: many exactly equal distances, ties to the lower
         # index
@@ -353,6 +389,9 @@ def test_three_nn_bit_exact(case):
         jnp.asarray(xyz1), jnp.asarray(xyz2), interpret=True))
     d, idx = tops.three_nn_torch(torch.from_numpy(xyz1),
                                  torch.from_numpy(xyz2))
+    wd2, wi2 = tops.three_nn(torch.from_numpy(xyz1), torch.from_numpy(xyz2))
+    np.testing.assert_array_equal(wi2.numpy(), idx.numpy())
+    np.testing.assert_array_equal(wd2.numpy(), d.numpy())
     assert idx.dtype == torch.int32 and idx.shape == xyz1.shape
     np.testing.assert_array_equal(idx.numpy(), wi)
     np.testing.assert_array_equal(idx.numpy(), pi)
@@ -372,6 +411,117 @@ def test_interpolation_weights_and_three_interpolate_match_jax():
     got = tops.three_interpolate_torch(
         torch.from_numpy(pre), torch.from_numpy(np.array(idx)), tw)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _interp_inputs(seed, B=2, N=90, M=24, C=20, dup=False):
+    """Features, 3-NN indices and weights of random clouds; ``dup`` repeats
+    a sparse point so one dense point has two equal neighbours."""
+    xyz1, xyz2, pre, _ = _fp_inputs(seed, B, N, M, C, dup=dup)
+    d, idx = G._three_nn_jax(jnp.asarray(xyz1), jnp.asarray(xyz2))
+    w = np.array(G.interpolation_weights(d))
+    return pre, np.array(idx), w
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dup", [False, True])
+def test_three_interpolate_matches_pallas(dtype, dup):
+    """The twin and the dispatching entry point against
+    three_interpolate_pallas_raw (interpret): f32 within 1e-6 of max|ref|
+    (its 3-term bf16 split is ~1e-7 relative), bf16 within one bf16 ulp
+    (both round bf16 products summed in f32 once; only the order of the f32
+    sum differs)."""
+    pre, idx, w = _interp_inputs(5, dup=dup)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(pk.three_interpolate_pallas_raw(
+        jnp.asarray(pre).astype(jdt), jnp.asarray(idx),
+        jnp.asarray(w).astype(jdt), interpret=True).astype(jnp.float32))
+    tp = torch.from_numpy(pre).to(tdt)
+    args = (tp, torch.from_numpy(idx), torch.from_numpy(w).to(tdt))
+    got = tops.three_interpolate_torch(*args)
+    assert got.dtype == tdt and got.shape == (2, 90, 20)
+    np.testing.assert_array_equal(tops.three_interpolate(*args).float().numpy(),
+                                  got.float().numpy())
+    got = got.float().numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+    else:
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_interpolate_vjp_matches_jax(dtype):
+    """d_points (through gather_backward) and d_weight of the port's
+    autograd Function against jax.vjp of three_interpolate_pallas, on the
+    same cotangent. f32: 1e-5 of each cotangent's max (sums in other
+    orders); bf16: 2e-2 (JAX rounds every product and scatter-add to bf16,
+    the port sums in f32 and rounds once)."""
+    pre, idx, w = _interp_inputs(6, dup=True)
+    co = np.random.RandomState(7).randn(2, 90, 20).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda p, ww: pk.three_interpolate_pallas(
+        p, jnp.asarray(idx), ww), jnp.asarray(pre).astype(jdt),
+        jnp.asarray(w).astype(jdt))
+    wp, ww = vjp(jnp.asarray(co).astype(jdt))
+    tp = torch.from_numpy(pre).to(tdt).requires_grad_(True)
+    tw = torch.from_numpy(w).to(tdt).requires_grad_(True)
+    out = tops.three_interpolate(tp, torch.from_numpy(idx), tw)
+    assert out.dtype == tdt and out.grad_fn is not None
+    out.backward(torch.from_numpy(co).to(tdt))
+    rel = 1e-5 if dtype == "float32" else 2e-2
+    for got, want in ((tp.grad, wp), (tw.grad, ww)):
+        assert got.dtype == tdt
+        want = np.asarray(want.astype(jnp.float32))
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= rel * np.abs(want).max(), err
+
+
+def test_three_interpolate_kernel_path_launches(monkeypatch):
+    """On the kernel path the forward launches the three_interpolate kernel
+    once and the backward the gather-backward kernel once (no d_weight
+    wanted, as in the model); the result equals the plain path's."""
+    pre, idx, w = _interp_inputs(8)
+    co = torch.from_numpy(np.random.RandomState(9).randn(2, 90, 20)
+                          .astype(np.float32))
+    plain_p = torch.from_numpy(pre).requires_grad_(True)
+    with dispatch.use_impl("torch"):
+        want = tops.three_interpolate(plain_p, torch.from_numpy(idx),
+                                      torch.from_numpy(w))
+        want.backward(co)
+    ck = fake_kernels(monkeypatch)
+    tp = torch.from_numpy(pre).requires_grad_(True)
+    got = tops.three_interpolate(tp, torch.from_numpy(idx),
+                                 torch.from_numpy(w))
+    got.backward(co)
+    assert (ck.three_interpolate.launches, ck.gather_backward.launches) == (
+        1, 1)
+    assert torch.equal(got, want) and torch.equal(tp.grad, plain_p.grad)
+    with pytest.raises(TypeError, match="int32"):
+        tops.three_interpolate(tp, torch.from_numpy(idx).long(),
+                               torch.from_numpy(w))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tops.three_interpolate(tp.double(), torch.from_numpy(idx),
+                               torch.from_numpy(w))
+
+
+def test_three_nn_kernel_path_checks(monkeypatch):
+    """On the kernel path three_nn launches its kernel once per call and
+    refuses fewer than 3 sparse points, another batch size or f64."""
+    ck = fake_kernels(monkeypatch)
+    xyz1, xyz2 = map(torch.from_numpy, (_cloud(1, 2, 50), _cloud(2, 2, 9)))
+    d, idx = tops.three_nn(xyz1, xyz2)
+    assert ck.three_nn.launches == 1 and d.shape == idx.shape == (2, 50, 3)
+    wd, wi = tops.three_nn_torch(xyz1, xyz2)
+    assert torch.equal(d, wd) and torch.equal(idx, wi)
+    with pytest.raises(ValueError, match="at least 3"):
+        tops.three_nn(xyz1, xyz2[:, :2])
+    with pytest.raises(ValueError, match="batch size"):
+        tops.three_nn(xyz1, xyz2[:1])
+    with pytest.raises(TypeError, match="float32"):
+        tops.three_nn(xyz1.double(), xyz2)
 
 
 @pytest.mark.parametrize("inputs", ["grid", "randn"])
@@ -525,19 +675,58 @@ def test_project_points_and_sample_image_features_match_jax():
 
 
 def test_bilinear_sample_raises_when_a_gradient_is_wanted(monkeypatch):
-    """The kernel has no backward yet: on the kernel path a wanted gradient
-    raises instead of coming back as zero."""
-    monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
-    feat = torch.zeros(1, 4, 4, 8)
-    uv = torch.zeros(1, 5, 2)
-    for f, u in ((feat.clone().requires_grad_(True), uv),
-                 (feat, uv.clone().requires_grad_(True))):
-        with pytest.raises(RuntimeError, match="no backward"):
+    """The kernel has a backward now: on the kernel path a wanted gradient
+    runs the sampling as _BilinearSample, whose forward launches the
+    bilinear kernel and whose backward launches the gather-backward kernel
+    once, with the plain path's results; what the kernel does not take
+    still raises, gradient or not."""
+    feat, uv = _bilinear_inputs(3, 2, 6, 5, 8, 40)
+    co = torch.from_numpy(np.random.RandomState(4).randn(2, 40, 8)
+                          .astype(np.float32))
+    pf = torch.from_numpy(feat).requires_grad_(True)
+    with dispatch.use_impl("torch"):
+        want = tops.bilinear_sample(pf, torch.from_numpy(uv))
+        want.backward(co)
+    ck = fake_kernels(monkeypatch)
+    tf = torch.from_numpy(feat).requires_grad_(True)
+    got = tops.bilinear_sample(tf, torch.from_numpy(uv))
+    got.backward(co)
+    assert (ck.bilinear_sample.launches, ck.gather_backward.launches) == (1, 1)
+    assert torch.equal(got, want) and torch.equal(tf.grad, pf.grad)
+    for f, u in ((tf, torch.from_numpy(uv).double()),
+                 (tf.detach(), torch.from_numpy(uv).double()
+                  .requires_grad_(True))):
+        with pytest.raises(TypeError, match="float32"):
             tops.bilinear_sample(f, u)
-    # no gradient wanted: past the check, on to the device checks
-    with pytest.raises(TypeError, match="float32"):
-        with torch.no_grad():
-            tops.bilinear_sample(feat.requires_grad_(True), uv.double())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilinear_sample_vjp_matches_jax(dtype):
+    """d_feat and d_uv of the port's _BilinearSample against jax.vjp of
+    bilinear_sample_pallas (its VJP is that of the f32 lerp), with points
+    inside, across the edges and far outside the frame (zero gradient).
+    f32: 1e-5 of each cotangent's max; bf16 d_feat: 2e-2 (JAX rounds the
+    corner cotangents and its scatter-add to bf16, the port sums in f32 and
+    rounds once); d_uv in f32 in both dtypes (bf16: 2e-2)."""
+    feat, uv = _bilinear_inputs(5, 2, 8, 8, 16, 96)
+    uv[:, :10] += np.array([100.0, -50.0], np.float32)  # far outside
+    co = np.random.RandomState(6).randn(2, 96, 16).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(pk.bilinear_sample_pallas, jnp.asarray(feat).astype(jdt),
+                     jnp.asarray(uv))
+    wf, wu = vjp(jnp.asarray(co).astype(jdt))
+    tf = torch.from_numpy(feat).to(tdt).requires_grad_(True)
+    tu = torch.from_numpy(uv).requires_grad_(True)
+    out = tops.bilinear_sample(tf, tu)
+    assert out.dtype == tdt
+    out.backward(torch.from_numpy(co).to(tdt))
+    assert tf.grad.dtype == tdt and tu.grad.dtype == torch.float32
+    assert (tu.grad[:, :10] == 0).all()  # outside: no gradient
+    rel = 1e-5 if dtype == "float32" else 2e-2
+    for got, want in ((tf.grad, wf), (tu.grad, wu)):
+        want = np.asarray(want.astype(jnp.float32))
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= rel * np.abs(want).max(), err
 
 
 def test_bilinear_sample_torch_is_differentiable_on_cpu():
