@@ -12,7 +12,9 @@ that goes wrong:
    kernels of mm3d_tpu_torch/csrc from source, printing the build seconds;
 2. holds each kernel against its plain PyTorch twin (``use_impl("torch")``)
    on the card at the shapes of the serving and training paths: FPS and
-   ball query bit-exact, the fused SA tail, the gather backward, the fused
+   ball query bit-exact, the fused SA tail, the given-index fused SA tail
+   (SA1 and SA2 over the indices of knn_point, plus a row of repeated
+   indices at K=48), the gather backward, the fused
    FP tail (fusion_sem_seg's FP2 and FP1, plus tie cases) and the bilinear
    image sampling within the stated tolerances (the gather backward also
    bit-identical across two launches); at fusion_sem_seg's training shapes
@@ -22,7 +24,8 @@ that goes wrong:
    plain twin and, where one PyTorch call computes the same function, that
    call: the device time per call from torch.profiler (``ms``, ``plain_ms``,
    ``library_ms``, the numbers of the kernels line) and CUDA events around
-   a call (``*call_ms``, the host's launch time included);
+   a call (``*call_ms``, the host's launch time included); knn_point, the
+   plain selection ahead of the given-index kernel, is timed beside it;
 3. serves fusion_cls through ``make_predictor`` at full width (B=128 clouds
    of 1024 points, 64x64 images, 40 classes, random seeded weights) in bf16
    and fp32: 3 requests each with the launch counts reset just before, then
@@ -34,6 +37,13 @@ that goes wrong:
    (shape, finiteness, normalisation), the launches per forward, fp32
    kernels-vs-plain parity, bf16-vs-fp32 per-point argmax agreement and the
    share of points the camera sees, and measures clouds/s and points/s;
+3c. serves pointnet2_cls_knn and pointnet2_cls_ssg (config 2) the same way
+   at B=128 unit-sphere clouds of 1024 points, 40 classes: 3 requests each
+   in bf16 and fp32, the launches per forward (kNN bf16: FPS and the
+   given-index fused SA twice each; fp32: FPS twice; SSG bf16: FPS and the
+   fused SA twice each; fp32: FPS and ball query twice each), fp32
+   kernels-vs-plain parity, bf16-vs-fp32 agreement, ms per forward and
+   clouds/s;
 4. trains fusion_cls at full width (B=24 clouds, the trainer's default), in
    fp32 with TF32 off and then in bf16 mixed precision: one step on the
    kernel path against one on the plain path from the same state and batch
@@ -50,6 +60,11 @@ that goes wrong:
    refresh and of an eval forward, the median step time, clouds/s, points/s
    and peak memory, and one short epoch of ``Trainer.fit`` (the main path)
    that ends in an eval with a finite mIoU;
+4c. trains pointnet2_cls_knn the same way (B=24 SyntheticModelNet clouds,
+   no image, the cls augmentations and dropout 0.4): kernel-vs-plain step
+   parity, launches per step (FPS and the gather backward twice each, no
+   ball query), step time, clouds/s, peak memory and one epoch of
+   ``Trainer.fit``;
 5. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -203,6 +218,17 @@ def bound(nbytes, flops_by_type):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def launch_counts(cuda_kernels):
+    """Each kernel wrapper's launch count, by name."""
+    return {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+
+
+def expect(cuda_kernels, **nonzero):
+    """The launch counts of every kernel: those named, 0 for the rest."""
+    return {k.__name__: nonzero.get(k.__name__, 0)
+            for k in cuda_kernels.KERNELS}
+
+
 # ------------------------------------------------------------ phases
 
 
@@ -328,6 +354,66 @@ def kernel_checks(torch, ops, geometry, dev):
                 + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
                 flops))
             record("fused_sa", f"{label} {dtname}", entry)
+
+    # --- fused SA tail over given indices: SA1 and SA2 shapes with the kNN
+    # indices of knn_point on the card, bf16 and fp32; then a row of one
+    # repeated index and K=48 (not a power of two, St=2)
+    g = np.random.RandomState(5)
+    for label, K, x, cents, (C1, C2, C3), timed in (
+            ("SA1 kNN K=32", 32, xyz1, c1, (64, 64, 128), True),
+            ("SA2 kNN K=64", 64, c1, c2, (128, 128, 256), True),
+            ("repeated idx K=48", 48, c1, c2, (128, 128, 256), False)):
+        B, N, _ = x.shape
+        S = cents.shape[1]
+        idx = ops.knn_point(K, x, cents)
+        if not timed:
+            idx[:, 5] = idx[:, 5, :1]
+            idx[:, 9, ::2] = idx[:, 9, 1::2]
+        base = [torch.from_numpy(a).to(dev) for a in (
+            g.randn(B, N, C1).astype(np.float32),
+            g.randn(B, S, C1).astype(np.float32),
+            (g.randn(C1, C2) * 0.3).astype(np.float32),
+            g.randn(C2).astype(np.float32),
+            (g.randn(C2, C3) * 0.3).astype(np.float32),
+            g.randn(C3).astype(np.float32))]
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32)):
+            args = (K, idx, *[a.to(dt) for a in base])
+            got = ops.fused_sa_idx(*args)
+            with ops.use_impl("torch"):
+                want = ops.fused_sa_idx(*args)
+            torch.cuda.synchronize()
+            check(got.shape == (B, S, C3) and got.dtype == dt,
+                  f"fused SA idx {label} {dtname}: shape/dtype")
+            gf, wf = got.float(), want.float()
+            err = (gf - wf).abs()
+            if dt == torch.bfloat16:
+                rel = float((err / (wf.abs() + 1)).max())
+                check(rel < BF16_REL_TOL,
+                      f"fused SA idx {label} bf16: max|d|/(|ref|+1) {rel}")
+            else:
+                worst = float((err - F32_RTOL * wf.abs()).max())
+                check(worst <= F32_ATOL, f"fused SA idx {label} fp32: "
+                                         f"|d| - rtol|ref| max {worst}")
+            entry = {"dtype": dtname, "max_abs_err": float(err.max())}
+            if timed:
+                entry.update(times(torch, lambda: ops.fused_sa_idx(*args),
+                                   20))
+                with ops.use_impl("torch"):
+                    entry.update(times(torch, lambda: ops.fused_sa_idx(
+                        *args), 5, "plain_"))
+                # the kNN selection ahead of the kernel (plain PyTorch on
+                # the card by design: a stable sort of all N distances)
+                entry.update(times(torch, lambda: ops.knn_point(K, x, cents),
+                                   5, "knn_point_"))
+                # no single PyTorch call computes this function
+                entry["library_ms"] = None
+                es = 2 if dt == torch.bfloat16 else 4
+                entry.update(bound(
+                    B * S * K * 4 + (B * N * C1 + B * S * C1) * es
+                    + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
+                    {dtname: 2 * B * S * K * (C1 * C2 + C2 * C3)}))
+            record("fused_sa_idx", f"{label} {dtname}", entry)
 
     # --- gather backward: the train path's SA1 and SA2 shapes at B=24 with
     # the ball query's own indices, a bf16 g, and random indices with an
@@ -729,51 +815,56 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
                                     f"points {dtname}", entry)
 
 
-def serve(torch, ops, cuda_kernels, dev):
-    """fusion_cls through make_predictor at full width, bf16 and fp32."""
+# launches per serving forward of the cloud classifiers: FPS at SA1 and SA2,
+# then bf16 the fused SA tail (over its own ball query, or over the kNN
+# indices of knn_point), fp32 the unfused branch (the ball-query kernel, or
+# knn_point)
+SERVE_LAUNCHES = {
+    "fusion_cls": {
+        "bfloat16": {"farthest_point_sample": 2, "fused_sa": 2},
+        "float32": {"farthest_point_sample": 2, "query_ball_point": 2}},
+    "pointnet2_cls_knn": {
+        "bfloat16": {"farthest_point_sample": 2, "fused_sa_idx": 2},
+        "float32": {"farthest_point_sample": 2}},
+    "pointnet2_cls_ssg": {
+        "bfloat16": {"farthest_point_sample": 2, "fused_sa": 2},
+        "float32": {"farthest_point_sample": 2, "query_ball_point": 2}}}
+
+
+def serve(torch, ops, cuda_kernels, dev, name, reqs):
+    """A cloud classifier through make_predictor at full width (B=128, 40
+    classes, random seeded weights), bf16 and fp32; ``reqs`` holds each
+    request's input tensors."""
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
     from mm3d_tpu_torch.utils.profiling import nontrivial_bn
 
-    model = init_params(get_model("fusion_cls").builder(num_class=NUM_CLASS),
-                        seed=0)
+    model = init_params(get_model(name).builder(num_class=NUM_CLASS), seed=0)
     nontrivial_bn(model, seed=1)  # so the folds matter
     state = model.state_dict()
-    preds = {"bfloat16": make_predictor("fusion_cls", state,
-                                        dtype=torch.bfloat16, device=dev,
-                                        num_class=NUM_CLASS),
-             "float32": make_predictor("fusion_cls", state, device=dev,
+    preds = {"bfloat16": make_predictor(name, state, dtype=torch.bfloat16,
+                                        device=dev, num_class=NUM_CLASS),
+             "float32": make_predictor(name, state, device=dev,
                                        num_class=NUM_CLASS)}
-    reqs = [[torch.from_numpy(a).to(dev) for a in request(s)]
-            for s in (10, 11, 12)]
+    n = len(reqs)
     counts, logp = {}, {}
     for dtname, pred in preds.items():
         cuda_kernels.reset_launches()
         logp[dtname] = [pred(*r) for r in reqs]
         torch.cuda.synchronize()
-        counts[dtname] = {k.__name__: k.launches
-                          for k in cuda_kernels.KERNELS}
-        print(f"serve {dtname}: 3 requests of B={BATCH}, launches "
+        counts[dtname] = launch_counts(cuda_kernels)
+        print(f"serve {name} {dtname}: {n} requests of B={BATCH}, launches "
               f"{counts[dtname]}", flush=True)
         for lp in logp[dtname]:
             check(lp.shape == (BATCH, NUM_CLASS) and lp.dtype == torch.float32,
-                  f"{dtname} logits shape {tuple(lp.shape)} {lp.dtype}")
-            check(bool(torch.isfinite(lp).all()), f"{dtname}: non-finite")
-    n = len(reqs)
-    check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
-                                 "query_ball_point": 0, "fused_sa": 2 * n,
-                                 "gather_backward": 0, "fused_fp": 0,
-                                 "bilinear_sample": 0, "three_nn": 0,
-                                 "three_interpolate": 0},
-          f"bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused SA "
-          "per forward")
-    check(counts["float32"] == {"farthest_point_sample": 2 * n,
-                                "query_ball_point": 2 * n, "fused_sa": 0,
-                                "gather_backward": 0, "fused_fp": 0,
-                                "bilinear_sample": 0, "three_nn": 0,
-                                "three_interpolate": 0},
-          f"fp32 launches {counts['float32']}: want 2 FPS + 2 ball query "
-          "per forward")
+                  f"{name} {dtname} logits shape {tuple(lp.shape)} "
+                  f"{lp.dtype}")
+            check(bool(torch.isfinite(lp).all()), f"{name} {dtname}: "
+                                                  "non-finite")
+        want = expect(cuda_kernels, **{
+            k: v * n for k, v in SERVE_LAUNCHES[name][dtname].items()})
+        check(counts[dtname] == want, f"{name} {dtname} launches "
+                                      f"{counts[dtname]}, want {want}")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
                 for k in counts["float32"]}
 
@@ -781,22 +872,24 @@ def serve(torch, ops, cuda_kernels, dev):
         plain = [preds["float32"](*r) for r in reqs]
     fp32_delta = max(float((a - b).abs().max())
                      for a, b in zip(logp["float32"], plain))
-    print(f"fp32 kernels path vs plain path: max|d logp| {fp32_delta}",
-          flush=True)
-    check(fp32_delta <= 1e-4, f"fp32 kernels vs plain: {fp32_delta} > 1e-4")
+    print(f"{name} fp32 kernels path vs plain path: max|d logp| "
+          f"{fp32_delta}", flush=True)
+    check(fp32_delta <= 1e-4, f"{name} fp32 kernels vs plain: {fp32_delta} "
+                              "> 1e-4")
 
     a16, a32 = torch.cat(logp["bfloat16"]), torch.cat(logp["float32"])
     agree = float((a16.argmax(-1) == a32.argmax(-1)).float().mean())
     bf16_delta = float((a16 - a32).abs().max())
-    print(f"bf16 vs fp32: argmax agreement {agree}, max|d logp| "
+    print(f"{name} bf16 vs fp32: argmax agreement {agree}, max|d logp| "
           f"{bf16_delta}", flush=True)
-    check(agree >= 0.95, f"bf16 vs fp32 argmax agreement {agree} < 0.95")
+    check(agree >= 0.95, f"{name} bf16 vs fp32 argmax agreement {agree} "
+                         "< 0.95")
 
     rates = {}
     for dtname, pred in preds.items():
         ms = cuda_ms(torch, lambda: pred(*reqs[0]), 12, warmup=3)
         rates[dtname] = {"forward_ms": ms, "clouds_per_s": BATCH / ms * 1e3}
-        print(f"serve {dtname}: median forward {ms} ms, "
+        print(f"serve {name} {dtname}: median forward {ms} ms, "
               f"{rates[dtname]['clouds_per_s']} clouds/s at B={BATCH}",
               flush=True)
     return {"launches": launches, "launches_by_dtype": counts,
@@ -831,8 +924,7 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
         cuda_kernels.reset_launches()
         logp[dtname] = [pred(*r) for r in reqs]
         torch.cuda.synchronize()
-        counts[dtname] = {k.__name__: k.launches
-                          for k in cuda_kernels.KERNELS}
+        counts[dtname] = launch_counts(cuda_kernels)
         print(f"serve fusion_sem_seg {dtname}: 3 requests of B={B} x N={N}, "
               f"launches {counts[dtname]}", flush=True)
         for lp in logp[dtname]:
@@ -845,18 +937,14 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
             check(norm < 1e-4, f"semseg {dtname}: exp(log-probs) sums off 1 "
                                f"by {norm}")
     n = len(reqs)
-    check(counts["bfloat16"] == {"farthest_point_sample": 2 * n,
-                                 "query_ball_point": 0, "fused_sa": 2 * n,
-                                 "gather_backward": 0, "fused_fp": 2 * n,
-                                 "bilinear_sample": n, "three_nn": 0,
-                                 "three_interpolate": 0},
+    check(counts["bfloat16"] == expect(
+        cuda_kernels, farthest_point_sample=2 * n, fused_sa=2 * n,
+        fused_fp=2 * n, bilinear_sample=n),
           f"semseg bf16 launches {counts['bfloat16']}: want 2 FPS + 2 fused "
           "SA + 2 fused FP + 1 bilinear per forward")
-    check(counts["float32"] == {"farthest_point_sample": 2 * n,
-                                "query_ball_point": 2 * n, "fused_sa": 0,
-                                "gather_backward": 0, "fused_fp": 2 * n,
-                                "bilinear_sample": n, "three_nn": 0,
-                                "three_interpolate": 0},
+    check(counts["float32"] == expect(
+        cuda_kernels, farthest_point_sample=2 * n, query_ball_point=2 * n,
+        fused_fp=2 * n, bilinear_sample=n),
           f"semseg fp32 launches {counts['float32']}: want 2 FPS + 2 ball "
           "query + 2 fused FP + 1 bilinear per forward")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
@@ -957,26 +1045,36 @@ def step_parity(torch, label, dtype, kmodel, pmodel, mk, mp,
             "bn_stats_excess": worst_stat}
 
 
-def train(torch, ops, cuda_kernels, dev):
-    """fusion_cls training at full width, fp32 (TF32 off) then bf16."""
+# launches of one train step: the FPS and grouping of SA1 and SA2 (kNN
+# grouping is knn_point, no kernel) and the gather backward of each
+TRAIN_LAUNCHES = {
+    "fusion_cls": {"farthest_point_sample": 2, "query_ball_point": 2,
+                   "gather_backward": 2},
+    "pointnet2_cls_knn": {"farthest_point_sample": 2, "gather_backward": 2}}
+
+
+def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
+    """Training of a cloud classifier at full width (``fusion_cls``, or
+    ``pointnet2_cls_knn``), fp32 (TF32 off) then bf16."""
     import copy
 
+    from mm3d_tpu_torch.data.augment import TASK_PIPELINES
     from mm3d_tpu_torch.data.pipeline import DataPipeline
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import TrainConfig, Trainer, steps
     from mm3d_tpu_torch.training.loop import build_datasets
     from mm3d_tpu_torch.training.state import make_optimizer
 
-    spec = get_model("fusion_cls")
-    names = ("random_point_dropout", "random_scale_point_cloud",
-             "shift_point_cloud")
-    cfg0 = TrainConfig(train_size=TRAIN_SIZE, test_size=TEST_SIZE, epochs=1,
-                       num_class=NUM_CLASS, batch_size=TRAIN_BATCH,
-                       npoint=NPOINT)
-    train_ds, _ = build_datasets(cfg0)
+    spec = get_model(name)
+    task = spec.task
+    names = TASK_PIPELINES[task]
+    cfg0 = TrainConfig(model=name, train_size=TRAIN_SIZE,
+                       test_size=TEST_SIZE, epochs=1, num_class=NUM_CLASS,
+                       batch_size=TRAIN_BATCH, npoint=NPOINT)
+    train_ds, _ = build_datasets(cfg0, task)
     batch = next(iter(DataPipeline(train_ds, TRAIN_BATCH, shuffle=False,
                                    to_device=dev).epoch(0)))
-    out = {"launches": {k.__name__: 0 for k in cuda_kernels.KERNELS}}
+    out = {"launches": expect(cuda_kernels)}
 
     def make(dtype, seed=0):
         model = init_params(spec.builder(num_class=NUM_CLASS, dtype=dtype),
@@ -989,7 +1087,7 @@ def train(torch, ops, cuda_kernels, dev):
         opt = make_optimizer(model.parameters(), "adam", 1e-4)
         gen = torch.Generator(dev).manual_seed(gen_seed)
         return steps.make_train_step(
-            model, spec.loss, opt, "fusion_cls",
+            model, spec.loss, opt, task,
             augment_names=() if fixed else names, generator=gen,
             deterministic=True if fixed else None)
 
@@ -1005,45 +1103,43 @@ def train(torch, ops, cuda_kernels, dev):
         cuda_kernels.reset_launches()
         mk = kstep(batch, 1e-3, 0.1)
         torch.cuda.synchronize()
-        per_step = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        per_step = launch_counts(cuda_kernels)
         with ops.use_impl("torch"):
             mp = pstep(batch, 1e-3, 0.1)
         torch.cuda.synchronize()
         torch.backends.cudnn.deterministic = False
-        res["kernel_vs_plain"] = step_parity(torch, f"train {dtname}",
-                                             dtype, kmodel, pmodel, mk, mp)
+        label = f"train {name} {dtname}"
+        res["kernel_vs_plain"] = step_parity(torch, label, dtype, kmodel,
+                                             pmodel, mk, mp)
         # (b) launches of one step, of a BN refresh and of an eval forward
-        want = {"farthest_point_sample": 2, "query_ball_point": 2,
-                "gather_backward": 2, "fused_sa": 0, "fused_fp": 0,
-                "bilinear_sample": 0, "three_nn": 0, "three_interpolate": 0}
-        check(per_step == want, f"train {dtname}: launches per step "
+        want = expect(cuda_kernels, **TRAIN_LAUNCHES[name])
+        check(per_step == want, f"{label}: launches per step "
                                 f"{per_step}, want {want}")
         refresh = steps.make_bn_refresh_step(
-            kmodel, "fusion_cls", names, torch.Generator(dev).manual_seed(3))
-        evaluate = steps.make_eval_step(kmodel, spec.loss, "fusion_cls",
-                                        NUM_CLASS)
+            kmodel, task, names, torch.Generator(dev).manual_seed(3))
+        evaluate = steps.make_eval_step(kmodel, spec.loss, task, NUM_CLASS)
         cuda_kernels.reset_launches()
         refresh(batch)
         em = evaluate(batch)
         torch.cuda.synchronize()
-        side = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        side = launch_counts(cuda_kernels)
         check(side["gather_backward"] == 0,
-              f"train {dtname}: BN refresh + eval launched {side}")
+              f"{label}: BN refresh + eval launched {side}")
         check(int(em["count"]) == TRAIN_BATCH, "eval count")
         res["launches_per_step"] = per_step
         res["launches_refresh_plus_eval"] = side
-        print(f"train {dtname}: launches per step {per_step}; BN refresh + "
+        print(f"{label}: launches per step {per_step}; BN refresh + "
               f"eval forward {side}", flush=True)
         # (c) ten steps on one fixed batch: finite losses, and the loss
         # falls
         model = make(dtype, seed=1)
         fixed = stepper(model, gen_seed=11, fixed=True)
         losses = [float(fixed(batch, 1e-3, 0.1)["loss"]) for _ in range(10)]
-        check(all(np.isfinite(losses)), f"train {dtname}: losses {losses}")
-        check(losses[-1] < losses[0], f"train {dtname}: loss did not fall "
+        check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+        check(losses[-1] < losses[0], f"{label}: loss did not fall "
                                       f"{losses}")
         res["fixed_batch_losses"] = losses
-        print(f"train {dtname}: 10 steps on one batch, losses {losses}",
+        print(f"{label}: 10 steps on one batch, losses {losses}",
               flush=True)
         # (e) step time at B=24 (the full step: augmentation, dropout):
         # CUDA events over 10 steps after 3 warm-ups
@@ -1054,36 +1150,36 @@ def train(torch, ops, cuda_kernels, dev):
         res["step_ms"] = ms
         res["clouds_per_s"] = TRAIN_BATCH / ms * 1e3
         res["peak_memory_bytes"] = peak
-        print(f"train {dtname}: median step {ms} ms, "
+        print(f"{label}: median step {ms} ms, "
               f"{res['clouds_per_s']} clouds/s at B={TRAIN_BATCH}, peak "
               f"memory {peak / 2**30:.3f} GiB", flush=True)
         del kmodel, pmodel, model
         # (d) the main path: one epoch of Trainer.fit (10 steps; eval over
         # 48 clouds; in bf16 the 8-step BN refresh before it)
-        cfg = TrainConfig(train_size=TRAIN_SIZE, test_size=TEST_SIZE,
-                          epochs=1, num_class=NUM_CLASS,
+        cfg = TrainConfig(model=name, train_size=TRAIN_SIZE,
+                          test_size=TEST_SIZE, epochs=1, num_class=NUM_CLASS,
                           batch_size=TRAIN_BATCH, npoint=NPOINT,
                           dtype=dtname, device=str(dev))
         trainer = Trainer(cfg)
         cuda_kernels.reset_launches()
         final = trainer.fit()
         torch.cuda.synchronize()
-        fit_launches = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        fit_launches = launch_counts(cuda_kernels)
         nsteps = trainer.train_pipe.steps_per_epoch()
         hist = trainer.history[0]
         check(nsteps == 10, f"fit: {nsteps} steps")
         check(fit_launches["gather_backward"] == 2 * nsteps,
-              f"fit {dtname}: launches {fit_launches}")
+              f"fit {label}: launches {fit_launches}")
         check(np.isfinite(hist["train"]["loss"])
               and np.isfinite(final["eval_loss"])
               and 0.0 <= final["instance_acc"] <= 1.0,
-              f"fit {dtname}: metrics {hist}")
+              f"fit {label}: metrics {hist}")
         for k, v in fit_launches.items():
             out["launches"][k] += v
         res["fit"] = {"train": hist["train"], "eval": final,
                       "launches": fit_launches,
                       "bn_refresh_steps": trainer._bn_refresh_n}
-        print(f"fit {dtname}: 1 epoch of {nsteps} steps, train "
+        print(f"fit {label}: 1 epoch of {nsteps} steps, train "
               f"{hist['train']}, eval {final}, launches {fit_launches}",
               flush=True)
         del trainer
@@ -1115,7 +1211,7 @@ def train_semseg(torch, ops, cuda_kernels, dev):
     train_ds, _ = build_datasets(config(), task)
     batch = next(iter(DataPipeline(train_ds, B, shuffle=False,
                                    to_device=dev).epoch(0)))
-    out = {"launches": {k.__name__: 0 for k in cuda_kernels.KERNELS}}
+    out = {"launches": expect(cuda_kernels)}
 
     def make(dtype, seed=0):
         return init_params(spec.builder(num_class=ncls, dtype=dtype),
@@ -1138,7 +1234,7 @@ def train_semseg(torch, ops, cuda_kernels, dev):
         cuda_kernels.reset_launches()
         mk = kstep(batch, 1e-3, 0.1)
         torch.cuda.synchronize()
-        per_step = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        per_step = launch_counts(cuda_kernels)
         with ops.use_impl("torch"):
             mp = pstep(batch, 1e-3, 0.1)
         torch.cuda.synchronize()
@@ -1149,9 +1245,9 @@ def train_semseg(torch, ops, cuda_kernels, dev):
             *((RESIDUE, GRAD_REL) if dtype is None
               else (BF16_RESIDUE, BF16_SEG_GRAD_REL)))
         # (b) launches of one step, of a BN refresh and of an eval forward
-        want = {"farthest_point_sample": 2, "query_ball_point": 2,
-                "gather_backward": 5, "fused_sa": 0, "fused_fp": 0,
-                "bilinear_sample": 1, "three_nn": 2, "three_interpolate": 2}
+        want = expect(cuda_kernels, farthest_point_sample=2,
+                      query_ball_point=2, gather_backward=5,
+                      bilinear_sample=1, three_nn=2, three_interpolate=2)
         check(per_step == want, f"{label}: launches per step {per_step}, "
                                 f"want {want}")
         refresh = steps.make_bn_refresh_step(
@@ -1161,7 +1257,7 @@ def train_semseg(torch, ops, cuda_kernels, dev):
         refresh(batch)
         em = evaluate(batch)
         torch.cuda.synchronize()
-        side = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        side = launch_counts(cuda_kernels)
         check(side["gather_backward"] == 0 and side["three_nn"] == 2
               and side["three_interpolate"] == 2 and side["fused_fp"] == 2
               and side["bilinear_sample"] == 2,
@@ -1190,7 +1286,7 @@ def train_semseg(torch, ops, cuda_kernels, dev):
         cuda_kernels.reset_launches()
         final = trainer.fit()
         torch.cuda.synchronize()
-        fit_launches = {k.__name__: k.launches for k in cuda_kernels.KERNELS}
+        fit_launches = launch_counts(cuda_kernels)
         nsteps = trainer.train_pipe.steps_per_epoch()
         hist = trainer.history[0]
         check(nsteps == SEG_TRAIN_SIZE // B, f"fit: {nsteps} steps")
@@ -1220,7 +1316,8 @@ def train_semseg(torch, ops, cuda_kernels, dev):
 
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
-    named (fused SA and fused FP: bf16 serving; gather backward: the f32
+    named (fused SA, given-index fused SA and fused FP: bf16 serving;
+    gather backward: the f32
     train step; bilinear: f32, where grid_sample is the yardstick;
     three_nn: f32; three_interpolate: the f32 train step). ms, plain_ms and
     library_ms are device times per call (torch.profiler)."""
@@ -1245,6 +1342,8 @@ def kernels_line(rows, launches):
                               "mm3d_tpu_torch/csrc/three_interp.cu",
                               "mm3d_tpu/ops/pallas_kernels.py:1387",
                               "float32"),
+        "fused_sa_idx": ("fused_sa_idx", "mm3d_tpu_torch/csrc/fused_sa.cu",
+                         "mm3d_tpu/ops/pallas_kernels.py:1214", "bfloat16"),
     }
     out = []
     for name, (wrapper, src, replaces, dtname) in path.items():
@@ -1260,8 +1359,8 @@ def kernels_line(rows, launches):
             "bound_by": max(timed, key=lambda e: e["bound_ms"])["bound_by"],
             # one PyTorch call computes the gather backward (index_add_),
             # the sampling (grid_sample) and the 3-NN (cdist + topk); FPS,
-            # ball query, the fused SA and FP tails and the interpolation
-            # have none
+            # ball query, the fused SA tails (both forms), the fused FP tail
+            # and the interpolation have none
             "library_ms": (sum(e["library_ms"] for e in timed)
                            if timed[0].get("library_ms") is not None
                            else None)})
@@ -1304,17 +1403,27 @@ def main():
     print("allow_tf32: matmul False, cudnn False", flush=True)
 
     rows = kernel_checks(torch, ops, geometry, dev)
-    served = serve(torch, ops, cuda_kernels, dev)
+    served = serve(torch, ops, cuda_kernels, dev, "fusion_cls",
+                   [[torch.from_numpy(a).to(dev) for a in request(s)]
+                    for s in (10, 11, 12)])
     semseg = serve_semseg(torch, ops, cuda_kernels, dev)
+    clouds = [[torch.from_numpy(unit_sphere_clouds(
+        np.random.RandomState(s), BATCH, NPOINT)).to(dev)]
+        for s in (30, 31, 32)]
+    served_pn2 = {name: serve(torch, ops, cuda_kernels, dev, name, clouds)
+                  for name in ("pointnet2_cls_knn", "pointnet2_cls_ssg")}
     trained = train(torch, ops, cuda_kernels, dev)
     trained_seg = train_semseg(torch, ops, cuda_kernels, dev)
-    # each kernel's launches on the main paths: serving fusion_cls and
-    # fusion_sem_seg (bf16 + fp32) and one epoch of Trainer.fit of each
-    # model (fp32 + bf16)
-    launches = {k: served["launches"][k] + semseg["launches"][k]
-                + trained["launches"][k] + trained_seg["launches"][k]
-                for k in served["launches"]}
-    kernels = kernels_line(rows, launches)
+    trained_knn = train(torch, ops, cuda_kernels, dev, "pointnet2_cls_knn")
+    # each kernel's launches on the main paths: serving fusion_cls,
+    # fusion_sem_seg, pointnet2_cls_knn and pointnet2_cls_ssg (bf16 + fp32)
+    # and one epoch of Trainer.fit of fusion_cls, fusion_sem_seg and
+    # pointnet2_cls_knn (fp32 + bf16)
+    phases = (served, semseg, *served_pn2.values(), trained, trained_seg,
+              trained_knn)
+    main_launches = {k: sum(p["launches"][k] for p in phases)
+                     for k in served["launches"]}
+    kernels = kernels_line(rows, main_launches)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on "
                                  "the main paths")
@@ -1324,7 +1433,9 @@ def main():
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "kernel_checks": rows,
                    "serve": served, "serve_fusion_sem_seg": semseg,
-                   "train": trained, "train_fusion_sem_seg": trained_seg,
+                   "serve_pointnet2_cls": served_pn2, "train": trained,
+                   "train_pointnet2_cls_knn": trained_knn,
+                   "train_fusion_sem_seg": trained_seg,
                    "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,27 +1,41 @@
-// Fused set-abstraction tail: ball query + gather + BN-folded 2-layer MLP +
-// max over the K neighbours, in one kernel.
+// Fused set-abstraction tail: neighbour selection + gather + BN-folded
+// 2-layer MLP + max over the K neighbours, in one kernel.
 //
 //   out[b,s] = max_k relu(rnd(rnd(h1[k] @ w2) + b2)),
 //   h1[k]    = relu(rnd(rnd(h0[k] @ w1) + b1)),
 //   h0[k]    = relu(rnd(pre[b, idx[b,s,k]] + cbias[b,s]))
 //
-// where idx is the ball query of ball_query.cuh and rnd() rounds to the
-// compute dtype (bf16 or f32), at the places the TPU kernel rounds
-// (_fused_sa_kernel, mm3d_tpu/ops/pallas_kernels.py): products accumulate in
-// f32, and each product output is cast to the dtype before its bias add.
+// rnd() rounds to the compute dtype (bf16 or f32), at the places the TPU
+// kernels round (_fused_sa_kernel and _fused_sa_idx_kernel,
+// mm3d_tpu/ops/pallas_kernels.py): products accumulate in f32, and each
+// product output is cast to the dtype before its bias add.
 //
-// Replaces the TPU kernel fused_sa_pallas (its versions _fused_sa_kernel,
-// _v4, _v6 and _v7 are TPU layout variants of one function) in
-// mm3d_tpu/ops/pallas_kernels.py. The TPU kernel gathers neighbour rows with
-// one-hot MXU matmuls because a TPU core has no fast row gather; here each
-// warp copies a neighbour's row straight from device memory into shared
-// memory.
+// Two forms share the kernel; a compile-time switch picks step 1:
+//
+// * ball query (mm3d_fused_sa): idx is the ball query of ball_query.cuh, one
+//   warp per centroid. Replaces fused_sa_pallas (its versions
+//   _fused_sa_kernel, _v4, _v6 and _v7 are TPU layout variants of one
+//   function).
+// * given indices (mm3d_fused_sa_idx): idx [B,S,K] int32 comes from the
+//   caller (the kNN selection of the pointnet2_cls_knn model), K valid
+//   indices per row, repeats allowed; the block copies its St*K indices
+//   into the same shared array. Replaces fused_sa_idx_pallas. The TPU kernel
+//   builds a [R,N] one-hot selection from lane masks and gathers on the MXU
+//   (with a 3-term bf16 split for f32, the MXU having no f32 path): layout
+//   tricks of a core with no row gather. Here each row is a direct gather
+//   into shared memory, as in the ball-query form, whose cost does not grow
+//   with N.
+//
+// The TPU kernels gather neighbour rows with one-hot MXU matmuls because a
+// TPU core has no fast row gather; here each warp copies a neighbour's row
+// straight from device memory into shared memory.
 //
 // What bounds it on the H100: the two products (2*K*(C1*C2 + C2*C3) operations
 // per centroid, about 155 GFLOP for SA1 and SA2 together at B=128) against
-// ~34 MB of input and output, so it is bound by tensor-core operations. The
-// grouped [B,S,K,C] tensor never touches device memory: a block takes St
-// centroids (St*K ~ 128 rows), selects their neighbours into shared memory,
+// ~34 MB of input and output (the given-index form also reads B*S*K*4 bytes
+// of indices), so it is bound by tensor-core operations. The grouped
+// [B,S,K,C] tensor never touches device memory: a block takes St centroids
+// (St*K ~ 128 rows), puts their neighbours' indices into shared memory,
 // gathers the rows, runs both products from shared memory with bf16 wmma
 // tiles and f32 accumulators (f32 inputs take CUDA-core FMAs), and reduces
 // max over K in the epilogue. Weights are read through L1/L2 by every block;
@@ -37,8 +51,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;  // output columns per product pass
 
 struct SaArgs {
-  const float* xyz;      // [B,N,3]
-  const float* new_xyz;  // [B,S,3]
+  const float* xyz;      // [B,N,3], ball-query form
+  const float* new_xyz;  // [B,S,3], ball-query form
+  const int* idx;        // [B,S,K], given-index form
   const void* pre;       // [B,N,C1]
   const void* cbias;     // [B,S,C1]
   const void* w1;        // [C1p,C2p], zero padded
@@ -119,7 +134,7 @@ __device__ void product_chunk(const float* X, int ldx, int Kd, const float* W,
   }
 }
 
-template <typename T>
+template <typename T, bool kGivenIdx>
 __global__ void __launch_bounds__(kThreads) fused_sa_kernel(SaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L(a.St, a.K, a.C1p, a.C2p, sizeof(T));
@@ -139,15 +154,25 @@ __global__ void __launch_bounds__(kThreads) fused_sa_kernel(SaArgs a) {
   const T* b2 = static_cast<const T*>(a.b2);
   T* out = static_cast<T*>(a.out);
 
-  // 1. neighbours: one warp per centroid of the tile
-  for (int s = warp; s < a.St; s += kWarps) {
-    const int sg = s0 + s;
-    if (sg < a.S) {
-      const float* c = a.new_xyz + (static_cast<size_t>(b) * a.S + sg) * 3;
-      mm3d_ball_query_warp(a.xyz + static_cast<size_t>(b) * a.N * 3, a.N, c[0],
-                           c[1], c[2], a.r2, a.K, idx + s * a.K);
-    } else {
-      for (int k = lane; k < a.K; k += 32) idx[s * a.K + k] = 0;
+  // 1. neighbours, idx[s*K + k] for the tile's centroids; rows past S
+  // select point 0
+  if constexpr (kGivenIdx) {
+    // the caller's indices: the tile's St*K of them are contiguous
+    const int* gi = a.idx + (static_cast<size_t>(b) * a.S + s0) * a.K;
+    const int valid = min(a.St, a.S - s0) * a.K;
+    for (int r = threadIdx.x; r < L.R; r += kThreads)
+      idx[r] = r < valid ? __ldg(gi + r) : 0;
+  } else {
+    // the ball query: one warp per centroid of the tile
+    for (int s = warp; s < a.St; s += kWarps) {
+      const int sg = s0 + s;
+      if (sg < a.S) {
+        const float* c = a.new_xyz + (static_cast<size_t>(b) * a.S + sg) * 3;
+        mm3d_ball_query_warp(a.xyz + static_cast<size_t>(b) * a.N * 3, a.N,
+                             c[0], c[1], c[2], a.r2, a.K, idx + s * a.K);
+      } else {
+        for (int k = lane; k < a.K; k += 32) idx[s * a.K + k] = 0;
+      }
     }
   }
   __syncthreads();
@@ -204,33 +229,26 @@ __global__ void __launch_bounds__(kThreads) fused_sa_kernel(SaArgs a) {
   }
 }
 
-template <typename T>
+template <typename T, bool kGivenIdx>
 int launch(const SaArgs& a, cudaStream_t stream) {
   const Layout L(a.St, a.K, a.C1p, a.C2p, sizeof(T));
   if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_sa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_sa_kernel<T, kGivenIdx>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L.total));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((a.S + a.St - 1) / a.St, a.B);
-  fused_sa_kernel<T><<<grid, kThreads, L.total, stream>>>(a);
+  fused_sa_kernel<T, kGivenIdx><<<grid, kThreads, L.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// C1p, C2p and C3p are multiples of 16; w1, b1, w2 and b2 are zero padded to
-// them. St centroids per block.
-extern "C" int mm3d_fused_sa(int is_bf16, const void* xyz, const void* new_xyz,
-                             const void* pre, const void* cbias, const void* w1,
-                             const void* b1, const void* w2, const void* b2,
-                             void* out, int B, int N, int S, int K, int C1,
-                             int C3, int C1p, int C2p, int C3p, int St,
-                             float r2, void* stream) {
-  SaArgs a;
-  a.xyz = static_cast<const float*>(xyz);
-  a.new_xyz = static_cast<const float*>(new_xyz);
+SaArgs tail_args(const void* pre, const void* cbias, const void* w1,
+                 const void* b1, const void* w2, const void* b2, void* out,
+                 int B, int N, int S, int K, int C1, int C3, int C1p, int C2p,
+                 int C3p, int St) {
+  SaArgs a{};
   a.pre = pre;
   a.cbias = cbias;
   a.w1 = w1;
@@ -248,7 +266,42 @@ extern "C" int mm3d_fused_sa(int is_bf16, const void* xyz, const void* new_xyz,
   a.C2p = C2p;
   a.C3p = C3p;
   a.St = St;
+  return a;
+}
+
+}  // namespace
+
+// C1p, C2p and C3p are multiples of 16; w1, b1, w2 and b2 are zero padded to
+// them. St centroids per block.
+extern "C" int mm3d_fused_sa(int is_bf16, const void* xyz, const void* new_xyz,
+                             const void* pre, const void* cbias, const void* w1,
+                             const void* b1, const void* w2, const void* b2,
+                             void* out, int B, int N, int S, int K, int C1,
+                             int C3, int C1p, int C2p, int C3p, int St,
+                             float r2, void* stream) {
+  SaArgs a = tail_args(pre, cbias, w1, b1, w2, b2, out, B, N, S, K, C1, C3,
+                       C1p, C2p, C3p, St);
+  a.xyz = static_cast<const float*>(xyz);
+  a.new_xyz = static_cast<const float*>(new_xyz);
   a.r2 = r2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
+  return is_bf16 ? launch<__nv_bfloat16, false>(a, st)
+                 : launch<float, false>(a, st);
+}
+
+// The given-index form: idx [B,S,K] int32, each in [0, N). Padding and St as
+// for mm3d_fused_sa.
+extern "C" int mm3d_fused_sa_idx(int is_bf16, const void* idx,
+                                 const void* pre, const void* cbias,
+                                 const void* w1, const void* b1,
+                                 const void* w2, const void* b2, void* out,
+                                 int B, int N, int S, int K, int C1, int C3,
+                                 int C1p, int C2p, int C3p, int St,
+                                 void* stream) {
+  SaArgs a = tail_args(pre, cbias, w1, b1, w2, b2, out, B, N, S, K, C1, C3,
+                       C1p, C2p, C3p, St);
+  a.idx = static_cast<const int*>(idx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch<__nv_bfloat16, true>(a, st)
+                 : launch<float, true>(a, st);
 }

@@ -1,6 +1,6 @@
 """Point-cloud augmentation on the device (counterpart of
-``mm3d_tpu/data/augment.py``, the ``fusion_cls`` and ``fusion_semseg``
-pipelines).
+``mm3d_tpu/data/augment.py``, the ``classification``, ``fusion_cls`` and
+``fusion_semseg`` pipelines).
 
 Each op is split in two: a *draw* (generator -> the op's random tensors, on
 the batch's device) and an *apply* (batch + those tensors -> the augmented
@@ -153,12 +153,33 @@ _CALIB_REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
 }
 
 TASK_PIPELINES = {
+    "classification": _CLS_TRAIN,
     # late fusion: the image branch never sees point coordinates, so the
     # point-only cls pipeline is safe as it is
     "fusion_cls": _CLS_TRAIN,
     # projective fusion: the semseg rotation must compensate the extrinsics
     "fusion_semseg": ("rotate_point_cloud_z_with_calib",),
 }
+
+
+def _apply(generator, batch: torch.Tensor, name: str) -> torch.Tensor:
+    if name not in _REGISTRY:
+        raise NotImplementedError(
+            f"augmentation {name!r} is not ported yet; the port has "
+            f"{sorted(_REGISTRY) + sorted(_CALIB_REGISTRY)}")
+    draw, apply = _REGISTRY[name]
+    return apply(batch, draw(generator, batch))
+
+
+def augment_batch(generator: torch.Generator, batch: torch.Tensor,
+                  names: Sequence[str]) -> torch.Tensor:
+    """Apply a named augmentation sequence to point clouds without a camera
+    (``augment.py:209-215``); a calib-aware name raises."""
+    for name in names:
+        if name in _CALIB_REGISTRY:
+            raise ValueError(f"{name} needs calib: use augment_fusion_batch")
+        batch = _apply(generator, batch, name)
+    return batch
 
 
 def augment_fusion_batch(generator: torch.Generator, batch: torch.Tensor,
@@ -171,10 +192,5 @@ def augment_fusion_batch(generator: torch.Generator, batch: torch.Tensor,
             draw, apply = _CALIB_REGISTRY[name]
             batch, R = apply(batch, R, draw(generator, batch))
             continue
-        if name not in _REGISTRY:
-            raise NotImplementedError(
-                f"augmentation {name!r} is not ported yet; the port has "
-                f"{sorted(_REGISTRY) + sorted(_CALIB_REGISTRY)}")
-        draw, apply = _REGISTRY[name]
-        batch = apply(batch, draw(generator, batch))
+        batch = _apply(generator, batch, name)
     return batch, R

@@ -18,8 +18,18 @@ import numpy as np
 import torch
 
 
-def _collate(samples: Sequence[dict]) -> dict:
-    """Stack dict samples key by key into tensors."""
+def _as_dict(sample) -> dict:
+    """A dict sample as it is; a classification sample ``(points, label)``
+    (``SyntheticModelNet``) as {"points", "label"}, the label int32."""
+    if isinstance(sample, dict):
+        return sample
+    points, label = sample
+    return {"points": points, "label": np.int32(label)}
+
+
+def _collate(samples: Sequence) -> dict:
+    """Stack samples key by key into tensors."""
+    samples = [_as_dict(s) for s in samples]
     return {k: torch.from_numpy(np.stack([s[k] for s in samples]))
             for k in samples[0]}
 
@@ -34,7 +44,8 @@ class DataPipeline:
     """Batches a map-style dataset with per-epoch shuffling and prefetch.
 
     Args:
-      dataset: supports __len__ and __getitem__(int) -> dict of arrays.
+      dataset: supports __len__ and __getitem__(int) -> dict of arrays, or
+        a classification sample (points, label).
       batch_size: static batch size; incomplete tails are dropped so every
         step sees the same shapes.
       shuffle: reshuffle indices every epoch from ``seed``.

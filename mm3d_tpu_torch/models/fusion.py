@@ -18,7 +18,8 @@ from mm3d_tpu_torch.models.image import ImageEncoder
 from mm3d_tpu_torch.models.layers import (BatchNorm, Dense, Dropout,
                                           SharedMLP, log_softmax_head)
 from mm3d_tpu_torch.models.pointnet2 import (FeaturePropagation,
-                                             SetAbstraction)
+                                             SetAbstraction,
+                                             classification_head)
 from mm3d_tpu_torch.ops import projection
 
 
@@ -134,12 +135,7 @@ class FusionCls(nn.Module):
             h, aux["fusion_alpha"] = self.fuse([pf, imgf])
         else:
             h = torch.cat([pf, imgf], dim=-1)
-        h = torch.relu(self.bn1(self.fc1(h), momentum=bn_momentum))
-        h = self.drop1(h, det, generator)
-        h = torch.relu(self.bn2(self.fc2(h), momentum=bn_momentum))
-        h = self.drop2(h, det, generator)
-        h = self.fc3(h)
-        return log_softmax_head(h.float()), aux
+        return classification_head(self, h, bn_momentum, det, generator), aux
 
 
 class FusionSemSeg(nn.Module):

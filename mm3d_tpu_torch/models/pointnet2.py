@@ -1,15 +1,20 @@
-"""PointNet++ blocks (counterpart of ``mm3d_tpu/models/pointnet2.py``).
+"""PointNet++ blocks and the SSG classifier (counterpart of
+``mm3d_tpu/models/pointnet2.py``).
 
-The branches of ``SetAbstraction`` that ``fusion_cls`` serves and trains:
+The branches of ``SetAbstraction`` that ``fusion_cls``, ``fusion_sem_seg``
+and ``PointNet2ClsSSG`` serve and train:
 
 * group_all (``pointnet2.py:142-163``): dense SharedMLP + max; in bf16
   training the stack computes in f32 (the group_all guard, ``:142-154``);
-* fused (``:232-243``), eval only: the BN-folded SA tail in one kernel
-  (``ops.fused_sa``; bf16 serving, or any dtype under impl 'cuda');
-* unfused (``:273-300``): FPS and ball-query kernels, then the gather (whose
-  backward is the gather-backward kernel), the MLP and max. Training always
-  takes it; bf16 training recentres in f32 from the f32 inputs captured
-  before the cast (``:170-178,278-292``).
+* fused (``:232-259``), eval only: the BN-folded SA tail in one kernel,
+  ``ops.fused_sa`` over the ball query or, for a kNN block, ``ops.knn_point``
+  then ``ops.fused_sa_idx`` over its indices (bf16 serving, or any dtype
+  under impl 'cuda');
+* unfused (``:273-300``): the FPS kernel, the ball-query kernel or
+  ``knn_point``, then the gather (whose backward is the gather-backward
+  kernel), the MLP and max. Training always takes it; bf16 training
+  recentres in f32 from the f32 inputs captured before the cast
+  (``:170-178,278-292``).
 
 ``FeaturePropagation`` (``:416-513``), the FP decoder block of the dense
 trunk, project-first:
@@ -22,11 +27,15 @@ trunk, project-first:
   gather-backward kernel), skip, bias, BN, relu. Training takes it;
 * M == 1 broadcasts the single sparse row.
 
+``PointNet2ClsSSG`` (``:519-554``) is BASELINE config 2
+(``pointnet2_cls_ssg``) and, with ``knn=True``, the kNN variant
+``pointnet2_cls_knn``.
+
 Train or eval is the module's ``training`` flag. The dtype casts sit where
 the JAX module puts them. Still to be ported in later slices: the
-point-shard branches (``:183-230``, ``:470-478``), kNN grouping
-(``:245-259``), the ``MM3D_BF16_DEBUG`` knob (``:30-36``),
-``project_first=False`` and ``SetAbstractionMsg``.
+point-shard branches (``:183-230``, ``:470-478``), the ``MM3D_BF16_DEBUG``
+knob (``:30-36``), ``project_first=False``, ``SetAbstractionMsg`` and the
+other model tops.
 """
 
 from __future__ import annotations
@@ -38,8 +47,9 @@ from torch import nn
 
 from mm3d_tpu_torch import ops
 from mm3d_tpu_torch.ops import dispatch
-from mm3d_tpu_torch.models.layers import (BatchNorm, SharedMLP,
-                                          guarded_train_dtype, lecun_normal_)
+from mm3d_tpu_torch.models.layers import (BatchNorm, Dense, Dropout,
+                                          SharedMLP, guarded_train_dtype,
+                                          lecun_normal_, log_softmax_head)
 
 
 def _want_fused_sa(train: bool, mlp, dtype) -> bool:
@@ -52,6 +62,20 @@ def _want_fused_sa(train: bool, mlp, dtype) -> bool:
     if dtype == torch.bfloat16:
         return True
     return dispatch.get_impl() == "cuda"
+
+
+def _want_fused_sa_idx(train: bool, mlp, dtype, knn: bool,
+                       nsample: int) -> bool:
+    """Take the given-index fused SA kernel (kNN serving)?
+
+    The JAX gates: eval only, a 3-layer MLP, a kNN block, K <= 128 (the
+    kernel's contract), bf16 serving or impl 'cuda'. The JAX package's
+    fourth gate, N <= 16*K in auto mode (``pointnet2.py:68-72``), is
+    dropped on purpose: it came from the TPU kernel's [R, N] one-hot
+    selection, whose cost grows with N, and the port's kernel gathers rows,
+    whose cost does not. So bf16 serving takes the kernel at SA1 (N/K = 32)
+    as well as at SA2: a routing difference, not a numeric one."""
+    return knn and nsample <= 128 and _want_fused_sa(train, mlp, dtype)
 
 
 def _want_fused_fp(train: bool) -> bool:
@@ -80,15 +104,19 @@ class SetAbstraction(nn.Module):
     points). Parameters follow the flax tree: ``proj_kernel`` [3+D, C1],
     ``proj_bias``, ``proj_bn`` and ``mlp_rest``; group_all blocks hold one
     ``mlp``. ``f32_train_guard`` computes the block in f32 during bf16
-    training (serving stays bf16), as the JAX attribute does."""
+    training (serving stays bf16), as the JAX attribute does. ``knn`` groups
+    the ``nsample`` nearest points instead of the ball query (``radius`` is
+    then unused)."""
 
     def __init__(self, npoint: Optional[int] = None,
                  radius: Optional[float] = None,
                  nsample: Optional[int] = None, in_channels: int = 0,
                  mlp: Sequence[int] = (), group_all: bool = False,
-                 dtype=None, f32_train_guard: bool = False):
+                 dtype=None, f32_train_guard: bool = False,
+                 knn: bool = False):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.knn = knn
         self.mlp_widths = tuple(mlp)
         self.group_all = group_all
         self.dtype = dtype
@@ -141,19 +169,31 @@ class SetAbstraction(nn.Module):
             xyz, self.npoint, _fps_start(train, xyz, fps_generator))
         new_xyz = ops.index_points(xyz, fps_idx)
 
-        if _want_fused_sa(train, self.mlp_widths, self.dtype):
-            # eval: BN folds to an affine map, so ball query + gather +
-            # MLP + max run as one kernel with no [B,S,K,C] tensor
+        if (_want_fused_sa_idx(train, self.mlp_widths, self.dtype, self.knn,
+                               self.nsample) if self.knn
+                else _want_fused_sa(train, self.mlp_widths, self.dtype)):
+            # eval: BN folds to an affine map, so neighbour selection +
+            # gather + MLP + max run as one kernel with no [B,S,K,C] tensor
+            # (a kNN block selects first, in PyTorch, as JAX does in XLA)
             pre = torch.matmul(cat, kernel)  # [B,N,C1]
             cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
             A, C = self.proj_bn.fold()
             (w1, b1), (w2, b2) = self.mlp_rest.fold()
-            out = ops.fused_sa(self.radius, self.nsample, xyz, new_xyz,
-                               pre * A, (bias - cterm) * A + C, w1, b1, w2,
-                               b2)
+            pre, cbias = pre * A, (bias - cterm) * A + C
+            if self.knn:
+                idx = ops.knn_point(self.nsample, xyz, new_xyz)
+                out = ops.fused_sa_idx(self.nsample, idx, pre, cbias, w1, b1,
+                                       w2, b2)
+            else:
+                out = ops.fused_sa(self.radius, self.nsample, xyz, new_xyz,
+                                   pre, cbias, w1, b1, w2, b2)
             return new_xyz, out
 
-        idx = ops.query_ball_point(self.radius, self.nsample, xyz, new_xyz)
+        if self.knn:
+            idx = ops.knn_point(self.nsample, xyz, new_xyz)
+        else:
+            idx = ops.query_ball_point(self.radius, self.nsample, xyz,
+                                       new_xyz)
         if dt is not None and train:
             # bf16 training: `gathered - cterm` cancels two O(1) terms, and
             # in bf16 that leaves ~5 bits of the local geometry; recentre in
@@ -241,3 +281,59 @@ class FeaturePropagation(nn.Module):
         if self.mlp_rest is not None:
             h = self.mlp_rest(h, bn_momentum)
         return h
+
+
+# --------------------------------------------------------------- cls models
+
+
+def classification_head(model: nn.Module, h: torch.Tensor,
+                        bn_momentum: float, deterministic: bool,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The lineage's FC head on ``model.fc1, bn1, drop1, fc2, bn2, drop2,
+    fc3``: two Dense + BN + relu + dropout layers and the class layer, then
+    the f32 log-softmax."""
+    h = torch.relu(model.bn1(model.fc1(h), momentum=bn_momentum))
+    h = model.drop1(h, deterministic, generator)
+    h = torch.relu(model.bn2(model.fc2(h), momentum=bn_momentum))
+    h = model.drop2(h, deterministic, generator)
+    return log_softmax_head(model.fc3(h).float())
+
+
+class PointNet2ClsSSG(nn.Module):
+    """Config 2 (BASELINE.json:8): PointNet++ SSG classification; with
+    ``knn=True`` the kNN-grouping variant (``pointnet2_cls_knn``)."""
+
+    def __init__(self, num_class: int = 40, normal_channel: bool = False,
+                 knn: bool = False, dtype=None):
+        super().__init__()
+        self.normal_channel = normal_channel
+        self.sa1 = SetAbstraction(512, 0.2, 32, 3 if normal_channel else 0,
+                                  (64, 64, 128), dtype=dtype, knn=knn)
+        self.sa2 = SetAbstraction(128, 0.4, 64, 128, (128, 128, 256),
+                                  dtype=dtype, knn=knn)
+        self.sa3 = SetAbstraction(in_channels=256, mlp=(256, 512, 1024),
+                                  group_all=True, dtype=dtype)
+        self.fc1 = Dense(1024, 512, dtype)
+        self.bn1 = BatchNorm(512, dtype=dtype)
+        self.drop1 = Dropout(0.4)
+        self.fc2 = Dense(512, 256, dtype)
+        self.bn2 = BatchNorm(256, dtype=dtype)
+        self.drop2 = Dropout(0.4)
+        self.fc3 = Dense(256, num_class, dtype)
+
+    def forward(self, points, bn_momentum: float = 0.1,
+                deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None):
+        """points [B,N,3(+3)] f32 -> (log_probs [B,num_class] f32,
+        {"trans_feat": None}). Dropout runs unless ``deterministic``
+        (default: not training); its masks come from ``generator``.
+        ``fps_generator`` turns on the random FPS start in training."""
+        det = (not self.training) if deterministic is None else deterministic
+        xyz = points[..., :3]
+        feats = points[..., 3:6] if self.normal_channel else None
+        xyz, f = self.sa1(xyz, feats, bn_momentum, fps_generator)
+        xyz, f = self.sa2(xyz, f, bn_momentum, fps_generator)
+        _, f = self.sa3(xyz, f, bn_momentum)
+        return (classification_head(self, f[:, 0], bn_momentum, det,
+                                    generator), {"trans_feat": None})

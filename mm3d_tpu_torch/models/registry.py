@@ -1,9 +1,10 @@
 """Model registry: config name -> (module builder, loss, task metadata).
 
-Counterpart of ``mm3d_tpu/models/registry.py``. The fusion configs are
-registered (``fusion_cls``, config 4, and ``fusion_sem_seg``, config 5, each
-with its attention-head variant); the other configs of the JAX registry
-join as their modules are ported.
+Counterpart of ``mm3d_tpu/models/registry.py``. Registered: the PointNet++
+SSG classifier (``pointnet2_cls_ssg``, config 2) and its kNN variant
+(``pointnet2_cls_knn``), and the fusion configs (``fusion_cls``, config 4,
+and ``fusion_sem_seg``, config 5, each with its attention-head variant); the
+other configs of the JAX registry join as their modules are ported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any, Callable, Dict, Optional
 
 from mm3d_tpu_torch.models import fusion as fu
 from mm3d_tpu_torch.models import pointnet as pn
+from mm3d_tpu_torch.models import pointnet2 as pn2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +53,15 @@ def available() -> Dict[str, ModelSpec]:
     return dict(_REGISTRY)
 
 
+register(ModelSpec(
+    "pointnet2_cls_ssg", "classification", pn2.PointNet2ClsSSG,
+    pn.pointnet_loss, default_npoint=1024, config_id=2))
+register(ModelSpec(
+    # SSG topology with kNN grouping instead of the ball query; serving
+    # selects in PyTorch and runs the given-index fused SA kernel
+    "pointnet2_cls_knn", "classification",
+    lambda **kw: pn2.PointNet2ClsSSG(knn=True, **kw),
+    pn.pointnet_loss, default_npoint=1024))
 register(ModelSpec("fusion_cls", "fusion_cls", fu.FusionCls,
                    pn.pointnet_loss, default_npoint=1024, config_id=4))
 register(ModelSpec(

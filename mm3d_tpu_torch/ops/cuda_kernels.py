@@ -12,6 +12,7 @@ wrapper                kernel                          plain twin
 farthest_point_sample  csrc/fps.cu                     geometry.fps_torch
 query_ball_point       csrc/ball_query.cu (+ .cuh)     geometry.ball_query_torch
 fused_sa               csrc/fused_sa.cu                fused_sa_torch (here)
+fused_sa_idx           csrc/fused_sa.cu (given idx)    fused_sa_idx_torch (here)
 gather_backward        csrc/gather_bwd.cu              gather_backward_torch
 fused_fp               csrc/fused_fp.cu (+ three_nn)   fused_fp_torch (here)
 bilinear_sample        csrc/bilinear.cu                bilinear_sample_torch
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "mm3d_fps_max_points": ("fps", []),
     "mm3d_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
+    "mm3d_fused_sa_idx": ("fused_sa", [_I] + [_P] * 8 + [_I] * 10 + [_P]),
     "mm3d_gather_bwd": ("gather_bwd", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
     "mm3d_gather_bwd_max_rows": ("gather_bwd", []),
     "mm3d_fused_fp": ("fused_fp", [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
@@ -156,21 +158,35 @@ query_ball_point.launches = 0
 # ----------------------------------------------------------- fused SA tail
 
 
-def fused_sa_torch(radius: float, nsample: int, xyz: torch.Tensor,
-                   new_xyz: torch.Tensor, pre: torch.Tensor,
-                   cbias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the fused SA kernel -> [B,S,C3] in pre's dtype.
+def fused_sa_idx_torch(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
+                       cbias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fused SA tail over given indices -> [B,S,C3] in
+    pre's dtype.
 
     max_k relu(relu(relu(gather(pre)[.,k] + cbias) @ w1 + b1) @ w2 + b2)
-    over the ball query's neighbours. Each product accumulates in f32 and
-    is rounded to the dtype before its bias add, as in the TPU kernel."""
+    over the neighbours idx [B,S,nsample]. Each product accumulates in f32
+    and is rounded to the dtype before its bias add, as in the TPU
+    kernels."""
+    if idx.shape[-1] != nsample:
+        raise ValueError(f"idx has {idx.shape[-1]} neighbours, nsample is "
+                         f"{nsample}")
     dt = pre.dtype
-    idx = ball_query_torch(radius, nsample, xyz, new_xyz)
     h = torch.relu(index_points(pre, idx) + cbias.to(dt)[:, :, None, :])
     h = torch.relu(torch.matmul(h, w1.to(dt)) + b1.to(dt))
     h = torch.relu(torch.matmul(h, w2.to(dt)) + b2.to(dt))
     return h.amax(dim=2)
+
+
+def fused_sa_torch(radius: float, nsample: int, xyz: torch.Tensor,
+                   new_xyz: torch.Tensor, pre: torch.Tensor,
+                   cbias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fused SA kernel -> [B,S,C3] in pre's dtype: the
+    ball query's neighbours (``ball_query_torch``), then the tail of
+    ``fused_sa_idx_torch``."""
+    idx = ball_query_torch(radius, nsample, xyz, new_xyz)
+    return fused_sa_idx_torch(nsample, idx, pre, cbias, w1, b1, w2, b2)
 
 
 def _round16(c: int) -> int:
@@ -181,6 +197,37 @@ def _padded(t: torch.Tensor, shape, dt) -> torch.Tensor:
     out = torch.zeros(shape, dtype=dt, device=t.device)
     out[tuple(slice(0, n) for n in t.shape)] = t
     return out
+
+
+def _sa_tail(name: str, B: int, N: int, S: int, pre, cbias, w1, b1, w2, b2):
+    """The checks and operands the two fused SA forms share: pre [B,N,C1]
+    bf16 or f32, cbias [B,S,C1], the folded layers; weights cast to pre's
+    dtype and zero padded to multiples of 16 -> (dims, operands)."""
+    dev, dt = pre.device, pre.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name} takes bf16 or f32 features, got {dt}")
+    C1, C2, C3 = pre.shape[-1], w1.shape[-1], w2.shape[-1]
+    if (pre.shape != (B, N, C1) or cbias.shape != (B, S, C1)
+            or w1.shape != (C1, C2) or b1.shape != (C2,)
+            or w2.shape != (C2, C3) or b2.shape != (C3,)):
+        raise ValueError(f"{name}: inconsistent shapes")
+    for n, t in (("cbias", cbias), ("w1", w1), ("b1", b1), ("w2", w2),
+                 ("b2", b2)):
+        if t.device != dev:
+            raise ValueError(f"{n} is on {t.device}, expected {dev}")
+    C1p, C2p, C3p = _round16(C1), _round16(C2), _round16(C3)
+    dims = (C1, C3, C1p, C2p, C3p)
+    operands = (pre.contiguous(), cbias.to(dt).contiguous(),
+                _padded(w1.to(dt), (C1p, C2p), dt),
+                _padded(b1.to(dt), (C2p,), dt),
+                _padded(w2.to(dt), (C2p, C3p), dt),
+                _padded(b2.to(dt), (C3p,), dt))
+    return dims, operands
+
+
+def _centroids_per_block(nsample: int, S: int) -> int:
+    # ~128 gathered rows per block: enough 16-row tiles for 8 warps
+    return max(1, min(S, 128 // nsample)) if nsample <= 128 else 1
 
 
 def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
@@ -201,43 +248,66 @@ def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
         return fused_sa_torch(radius, nsample, xyz, new_xyz, pre, cbias,
                               w1, b1, w2, b2)
     dev = pre.device
-    dt = pre.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused_sa takes bf16 or f32 features, got {dt}")
     xyz = _f32_points("xyz", xyz, dev)
     new_xyz = _f32_points("new_xyz", new_xyz, dev)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
-    C1, C2, C3 = pre.shape[-1], w1.shape[-1], w2.shape[-1]
-    if (pre.shape != (B, N, C1) or cbias.shape != (B, S, C1)
-            or w1.shape != (C1, C2) or b1.shape != (C2,)
-            or w2.shape != (C2, C3) or b2.shape != (C3,)):
-        raise ValueError("fused_sa: inconsistent shapes")
-    for name, t in (("cbias", cbias), ("w1", w1), ("b1", b1), ("w2", w2),
-                    ("b2", b2)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    C1p, C2p, C3p = _round16(C1), _round16(C2), _round16(C3)
-    pre = pre.contiguous()
-    cbias = cbias.to(dt).contiguous()
-    w1p = _padded(w1.to(dt), (C1p, C2p), dt)
-    w2p = _padded(w2.to(dt), (C2p, C3p), dt)
-    b1p = _padded(b1.to(dt), (C2p,), dt)
-    b2p = _padded(b2.to(dt), (C3p,), dt)
-    # ~128 gathered rows per block: enough 16-row tiles for 8 warps
-    St = max(1, min(S, 128 // nsample)) if nsample <= 128 else 1
-    out = torch.empty((B, S, C3), dtype=dt, device=dev)
-    if B * S * C3 == 0:
+    dims, operands = _sa_tail("fused_sa", B, N, S, pre, cbias, w1, b1, w2,
+                              b2)
+    out = torch.empty((B, S, dims[1]), dtype=pre.dtype, device=dev)
+    if out.numel() == 0:
         return out
-    _launch("mm3d_fused_sa", int(dt == torch.bfloat16), _ptr(xyz),
-            _ptr(new_xyz), _ptr(pre), _ptr(cbias), _ptr(w1p), _ptr(b1p),
-            _ptr(w2p), _ptr(b2p), _ptr(out), B, N, S, nsample, C1, C3, C1p,
-            C2p, C3p, St, _r2(radius), _stream(pre))
+    _launch("mm3d_fused_sa", int(pre.dtype == torch.bfloat16), _ptr(xyz),
+            _ptr(new_xyz), *map(_ptr, operands), _ptr(out), B, N, S,
+            nsample, *dims, _centroids_per_block(nsample, S), _r2(radius),
+            _stream(pre))
     fused_sa.launches += 1
     return out
 
 
 fused_sa.launches = 0
+
+
+def fused_sa_idx(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
+                 cbias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Fused SA tail over given neighbours (gather + folded 2-layer MLP + max
+    over K), the kNN serving path.
+
+    Args:
+      idx [B,S,nsample] int32: each row nsample valid indices in [0, N)
+        (repeats allowed), nsample <= 128 (the TPU kernel's contract).
+      pre, cbias, w1, b1, w2, b2: as for ``fused_sa``.
+    Returns [B,S,C3] in pre's dtype."""
+    if dispatch.resolve(pre) == "torch":
+        return fused_sa_idx_torch(nsample, idx, pre, cbias, w1, b1, w2, b2)
+    dev = pre.device
+    if idx.device != dev:
+        raise ValueError(f"idx is on {idx.device}, expected {dev}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.dim() != 3 or idx.shape[-1] != nsample:
+        raise ValueError(f"idx must be [B,S,{nsample}], got "
+                         f"{tuple(idx.shape)}")
+    if nsample > 128:
+        raise ValueError(f"fused_sa_idx takes at most 128 neighbours, got "
+                         f"{nsample}")
+    B, S, _ = idx.shape
+    N = pre.shape[1]
+    dims, operands = _sa_tail("fused_sa_idx", B, N, S, pre, cbias, w1, b1,
+                              w2, b2)
+    out = torch.empty((B, S, dims[1]), dtype=pre.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    idx = idx.contiguous()
+    _launch("mm3d_fused_sa_idx", int(pre.dtype == torch.bfloat16), _ptr(idx),
+            *map(_ptr, operands), _ptr(out), B, N, S, nsample, *dims,
+            _centroids_per_block(nsample, S), _stream(pre))
+    fused_sa_idx.launches += 1
+    return out
+
+
+fused_sa_idx.launches = 0
 
 
 # ------------------------------------------- gather backward (scatter-add)
@@ -612,7 +682,8 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
 three_interpolate.launches = 0
 
 KERNELS = (farthest_point_sample, query_ball_point, fused_sa, gather_backward,
-           fused_fp, bilinear_sample, three_nn, three_interpolate)
+           fused_fp, bilinear_sample, three_nn, three_interpolate,
+           fused_sa_idx)
 
 
 def reset_launches() -> None:

@@ -10,6 +10,10 @@ products over the three coordinates are summed left to right as separate
 multiplies and adds, so no FMA contraction and no TF32 matmul can move a
 boundary decision.
 
+``knn_point`` is the kNN selection of the JAX package, which keeps it in
+XLA: it is plain PyTorch on every device (its indices feed the given-index
+fused SA kernel).
+
 ``three_nn`` and ``three_interpolate`` are the dispatching entry points of
 the JAX package's names (``mm3d_tpu/ops/geometry.py:222-232,266-278``): the
 kernel for CUDA tensors, the twin for CPU tensors (``ops.dispatch``).
@@ -152,6 +156,23 @@ def ball_query_torch(radius: float, nsample: int, xyz: torch.Tensor,
         idx = torch.cat([idx, pad], dim=-1)
     out = torch.where(idx == N, idx[..., :1], idx)
     return torch.where(out == N, torch.zeros_like(out), out)
+
+
+def knn_point(nsample: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor) -> torch.Tensor:
+    """k nearest points of each centroid: xyz [B,N,3], new_xyz [B,S,3] ->
+    [B,S,nsample] int32 in ascending distance, ties to the lower index
+    (``mm3d_tpu/ops/geometry.py:208-213``, whose ``lax.top_k`` orders them
+    so).
+
+    The distances are ``square_distance``'s (ordered sums, no FMA, no TF32);
+    a stable ascending sort then keeps equal distances in index order, which
+    ``torch.topk`` does not promise. The JAX package keeps this selection in
+    XLA, not in a Pallas kernel, so it stays PyTorch on the card as well: a
+    faster selection is kernel work for later."""
+    sqr = square_distance(new_xyz, xyz)  # [B,S,N]
+    idx = torch.sort(sqr, dim=-1, stable=True).indices[..., :nsample]
+    return idx.to(torch.int32)
 
 
 def three_nn_torch(xyz1: torch.Tensor, xyz2: torch.Tensor

@@ -1,6 +1,7 @@
 """Trainer: epoch loop and evaluation (counterpart of
-``mm3d_tpu/training/loop.py``) for the ``fusion_cls`` and ``fusion_semseg``
-tasks (``TrainConfig(model="fusion_cls" | "fusion_sem_seg", ...)``).
+``mm3d_tpu/training/loop.py``) for the ``classification``, ``fusion_cls``
+and ``fusion_semseg`` tasks (``TrainConfig(model="pointnet2_cls_ssg" |
+"pointnet2_cls_knn" | "fusion_cls" | "fusion_sem_seg", ...)``).
 
 The steps run on the Trainer's device (``cuda`` unless the caller passes
 ``device="cpu"``); the loop schedules the lr and BN momentum per epoch,
@@ -34,7 +35,8 @@ from mm3d_tpu_torch.utils import metrics as M
 
 # per-task headline metric: the best-of-run value ``fit`` reports
 # (``loop.py:34-38`` of the JAX package)
-BEST_METRIC = {"fusion_cls": "instance_acc", "fusion_semseg": "miou"}
+BEST_METRIC = {"classification": "instance_acc",
+               "fusion_cls": "instance_acc", "fusion_semseg": "miou"}
 
 
 @dataclasses.dataclass
@@ -79,15 +81,16 @@ _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
     """The task's synthetic datasets, shaped like the real ones: same class
     definitions (seed), disjoint instance streams for train and test.
-    ``fusion_cls``: ModelNet-style clouds; ``fusion_semseg``: S3DIS-style
-    blocks of ``cfg.npoint`` 9-dim points with per-point labels; each with
+    ``classification``: ModelNet-style clouds with their labels;
+    ``fusion_cls``: the same clouds and ``fusion_semseg``: S3DIS-style
+    blocks of ``cfg.npoint`` 9-dim points with per-point labels, each with
     its rendered view and camera."""
 
     def base(size, split):
         if task == "fusion_semseg":
             return syn.SyntheticIndoorScene(npoints=cfg.npoint, size=size,
                                             seed=cfg.seed, split=split)
-        if task == "fusion_cls":
+        if task in ("classification", "fusion_cls"):
             return syn.SyntheticModelNet(
                 num_classes=cfg.num_class, npoints=cfg.npoint,
                 normals=cfg.normal_channel, size=size, seed=cfg.seed,
@@ -95,6 +98,8 @@ def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
         raise ValueError(f"no synthetic datasets for task {task!r}")
 
     def mk(size, split):
+        if task == "classification":
+            return base(size, split)
         return syn.SyntheticMultimodal(base=base(size, split),
                                        hw=cfg.image_hw, seed=cfg.seed)
 
@@ -134,8 +139,9 @@ class Trainer:
         else:
             self.num_classes = cfg.num_class
             kwargs = {"num_class": cfg.num_class,
-                      "normal_channel": cfg.normal_channel,
-                      "fusion": cfg.fusion}
+                      "normal_channel": cfg.normal_channel}
+            if self.task == "fusion_cls":
+                kwargs["fusion"] = cfg.fusion
         self.model = init_params(
             self.spec.builder(dtype=_DTYPES[cfg.dtype], **kwargs),
             cfg.seed).to(self.device)

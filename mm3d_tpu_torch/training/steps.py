@@ -1,13 +1,17 @@
 """Train, BN-refresh and eval steps (counterpart of
-``mm3d_tpu/training/steps.py``) for the ``fusion_cls`` and ``fusion_semseg``
-tasks.
+``mm3d_tpu/training/steps.py``) for the ``classification``, ``fusion_cls``
+and ``fusion_semseg`` tasks.
 
 PyTorch runs eagerly, so a step is a plain function over the model and
 optimizer, which it updates in place; it returns device tensors and does
-not synchronise. The two tasks differ in the target: ``batch["label"]`` [B]
-for ``fusion_cls``, ``batch["seg"]`` [B,N] for ``fusion_semseg``, whose
-metrics count points. The other tasks of the JAX package (classification,
-partseg, semseg) come with the slices that port their models.
+not synchronise. The tasks differ in the inputs and the target:
+``classification`` takes ``batch["points"]`` alone, with the point-only
+augmentations; the fusion tasks take the points, the image and the camera
+(K, R, t), with the calib-aware augmentations. The target is
+``batch["label"]`` [B] for ``classification`` and ``fusion_cls``,
+``batch["seg"]`` [B,N] for ``fusion_semseg``, whose metrics count points.
+The other tasks of the JAX package (partseg, semseg) come with the slices
+that port their models.
 """
 
 from __future__ import annotations
@@ -20,9 +24,8 @@ from mm3d_tpu_torch.data import augment as aug
 from mm3d_tpu_torch.training.state import set_lr
 from mm3d_tpu_torch.utils import metrics as M
 
-TASKS = ("fusion_cls", "fusion_semseg")
-_LATER = {"classification": "the PointNet++ classification slice",
-          "partseg": "the FP-block slice",
+TASKS = ("classification", "fusion_cls", "fusion_semseg")
+_LATER = {"partseg": "the FP-block slice",
           "semseg": "the FP-block slice"}
 
 
@@ -34,12 +37,26 @@ def _check_task(task: str) -> None:
             (f"; it comes with {where}" if where else ""))
 
 
-def _model_args(batch, points, R):
+def _augmented(batch, task: str, names, generator):
+    """(points, R) of the batch after the named augmentations; R is None
+    for ``classification``, which has no camera."""
+    points, R = batch["points"], batch.get("R")
+    if names:
+        if task == "classification":
+            points = aug.augment_batch(generator, points, names)
+        else:
+            points, R = aug.augment_fusion_batch(generator, points, R, names)
+    return points, R
+
+
+def _model_args(batch, task: str, points, R):
+    if task == "classification":
+        return (points,)
     return (points, batch["image"], batch["K"], R, batch["t"])
 
 
 def _target(batch, task: str) -> torch.Tensor:
-    return batch["label"] if task == "fusion_cls" else batch["seg"]
+    return batch["seg"] if task == "fusion_semseg" else batch["label"]
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,
@@ -62,12 +79,10 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
 
     def step(batch, lr: float, bn_momentum: float):
         model.train()
-        points, R = batch["points"], batch["R"]
-        if names:
-            points, R = aug.augment_fusion_batch(generator, points, R, names)
+        points, R = _augmented(batch, task, names, generator)
         target = _target(batch, task)
         optimizer.zero_grad(set_to_none=True)
-        log_probs, aux = model(*_model_args(batch, points, R),
+        log_probs, aux = model(*_model_args(batch, task, points, R),
                                bn_momentum=bn_momentum,
                                deterministic=deterministic,
                                generator=generator,
@@ -97,10 +112,8 @@ def make_bn_refresh_step(model: torch.nn.Module, task: str,
     @torch.no_grad()
     def step(batch):
         model.train()
-        points, R = batch["points"], batch["R"]
-        if names:
-            points, R = aug.augment_fusion_batch(generator, points, R, names)
-        model(*_model_args(batch, points, R), bn_momentum=0.5,
+        points, R = _augmented(batch, task, names, generator)
+        model(*_model_args(batch, task, points, R), bn_momentum=0.5,
               generator=generator)
 
     return step
@@ -127,7 +140,8 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
         vm = (torch.ones(B, dtype=torch.int32, device=points.device)
               if valid is None else valid.to(torch.int32))
         wm = vm.reshape((B,) + (1,) * (target.dim() - 1))
-        log_probs, aux = model(*_model_args(batch, points, batch["R"]))
+        log_probs, aux = model(*_model_args(batch, task, points,
+                                            batch.get("R")))
         pred = torch.argmax(log_probs, -1)
         hit = (pred == target).to(torch.int32) * wm
         return {"loss": loss_fn(log_probs, target, aux, weight=class_weights,

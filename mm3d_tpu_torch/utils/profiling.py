@@ -2,20 +2,24 @@
 
 Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the eval forward
 served by ``make_predictor`` (``--mode serve``) and of one train step of
-``steps.make_train_step`` (``--mode train``), each for ``fusion_cls`` or
-``fusion_sem_seg``:
+``steps.make_train_step`` (``--mode train``), each for ``fusion_cls``,
+``fusion_sem_seg``, ``pointnet2_cls_knn`` or ``pointnet2_cls_ssg``:
 
 * ``stage_times`` -- CUDA events at the start and end of each stage of the
   model, recorded by forward hooks: for ``fusion_cls`` SA1, SA2, SA3 and the
   image CNN, the rest of the forward (concat, FC head, log-softmax) being
   the total less the stages; for ``fusion_sem_seg`` SA1, SA2, FP2, FP1, the
   image CNN, projection + sampling (from the CNN's end to the head's start,
-  the fusion included) and the head (head MLP to log-softmax);
+  the fusion included) and the head (head MLP to log-softmax); for the
+  PointNet++ classifiers SA1, SA2, SA3 and the head (fc1 to log-softmax),
+  and in serving the kNN selection inside SA1 and SA2 (``knn_sa1``,
+  ``knn_sa2``, events around each ``ops.knn_point`` call);
 * ``train_stage_times`` -- the same for the train step's forward (for
   ``fusion_sem_seg`` the head MLP is a stage of its own), plus its backward:
   an event where each stage's backward starts (a backward pre-hook, when
   the gradient of the stage's output is ready; for ``fusion_sem_seg`` the
-  sampling's backward starts when the head MLP's input gradient is ready),
+  sampling's backward starts when the head MLP's input gradient is ready;
+  the head's backward is the span before the first stage's),
   each stage's span running to the next start (the image and point branches
   are independent, so the engine may interleave them), and the
   augmentation and optimizer step;
@@ -26,13 +30,15 @@ served by ``make_predictor`` (``--mode serve``) and of one train step of
 Run on one card from the repository root::
 
     python -m mm3d_tpu_torch.utils.profiling [--mode serve|train]
-        [--dtype bfloat16|float32] [--model fusion_cls|fusion_sem_seg]
+        [--dtype bfloat16|float32] [--model fusion_cls|fusion_sem_seg|
+        pointnet2_cls_knn|pointnet2_cls_ssg]
 
 Serving ``fusion_cls`` takes B=128 clouds of 1024 points with 64x64 images
-and 40 classes; serving ``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks
+and 40 classes, the PointNet++ classifiers the same clouds without images;
+serving ``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks
 of 2048 points with their 64x64 rendered views and cameras and 13 classes;
 training B=24 of the same inputs (random seeded weights, seeded inputs;
-``fusion_sem_seg`` with its calib-aware Z rotation). It prints one JSON line and writes it to
+each task's augmentations). It prints one JSON line and writes it to
 ``profile_<mode>_<model>_<dtype>.json`` in the ``--out`` directory. It fails
 without a card.
 """
@@ -40,6 +46,7 @@ without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -92,11 +99,36 @@ def stage_times(model: torch.nn.Module, call: Callable[[], object],
     return out
 
 
+@contextlib.contextmanager
+def timed_calls(owner, attr: str):
+    """Replace ``owner.attr`` with a wrapper that records a CUDA event
+    before and after each call; yields the list of (start, end) pairs."""
+    fn = getattr(owner, attr)
+    pairs = []
+
+    def wrapper(*args, **kwargs):
+        e0 = _event()
+        out = fn(*args, **kwargs)
+        pairs.append((e0, _event()))
+        return out
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield pairs
+    finally:
+        setattr(owner, attr, fn)
+
+
 def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
-    """The stages ``stage_times`` reads for a FusionCls or FusionSemSeg."""
+    """The stages ``stage_times`` reads for a FusionCls, FusionSemSeg or
+    PointNet2ClsSSG."""
     def whole(m):
         return ((m, "start"), (m, "end"))
 
+    if not hasattr(model, "point_trunk"):  # PointNet2ClsSSG
+        return {"sa1": whole(model.sa1), "sa2": whole(model.sa2),
+                "sa3": whole(model.sa3),
+                "head": ((model.fc1, "start"), (model, "end"))}
     pt = model.point_trunk
     if hasattr(pt, "fp1"):  # FusionSemSeg
         return {"sa1": whole(pt.sa1), "sa2": whole(pt.sa2),
@@ -111,6 +143,8 @@ def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
 
 def _train_stages(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
     """The modules whose forward and backward ``train_stage_times`` marks."""
+    if not hasattr(model, "point_trunk"):  # PointNet2ClsSSG
+        return {"sa1": model.sa1, "sa2": model.sa2, "sa3": model.sa3}
     pt = model.point_trunk
     if hasattr(pt, "fp1"):  # FusionSemSeg
         return {"sa1": pt.sa1, "sa2": pt.sa2, "fp2": pt.fp2, "fp1": pt.fp1,
@@ -152,6 +186,11 @@ def train_stage_times(model: torch.nn.Module,
                 lambda m, a, o, name=name: mark(f"fwd_{name}_end")),
             mod.register_full_backward_pre_hook(
                 lambda m, g, name=name: mark(f"bwd_{name}"))]
+    # PointNet2ClsSSG: the head, from fc1 on, is a forward span too
+    head = None if hasattr(model, "point_trunk") else model.fc1
+    if head is not None:
+        handles.append(head.register_forward_pre_hook(
+            lambda m, a: mark("fwd_head_start")))
     bwd_names = list(stages)
     if semseg:
         handles.append(model.head_mlp.register_full_backward_hook(
@@ -182,6 +221,9 @@ def train_stage_times(model: torch.nn.Module,
         out["fwd_sampling"] = med(marks["fwd_image_end"],
                                   marks["fwd_head_mlp_start"])
         fwd.append("fwd_sampling")
+    if head is not None:
+        out["fwd_head"] = med(marks["fwd_head_start"], marks["fwd_end"])
+        fwd.append("fwd_head")
     out["fwd_total"] = med(marks["fwd_start"], marks["fwd_end"])
     out["fwd_rest"] = out["fwd_total"] - sum(out[k] for k in fwd)
     # per step, order the stages' backward starts in time; a stage runs to
@@ -294,18 +336,22 @@ def nontrivial_bn(model: torch.nn.Module, seed: int = 1) -> None:
 
 
 def _serve(model_name: str, dtype, batch: int) -> dict:
+    from mm3d_tpu_torch import ops
     from mm3d_tpu_torch.data.synthetic import semseg_request
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
 
+    spec = get_model(model_name)
     ncls = 13 if model_name == "fusion_sem_seg" else 40
-    model = init_params(get_model(model_name).builder(num_class=ncls), 0)
+    model = init_params(spec.builder(num_class=ncls), 0)
     nontrivial_bn(model)
     pred = make_predictor(model_name, model.state_dict(), device="cuda",
                           num_class=ncls, dtype=dtype)
     r = np.random.RandomState(0)
     if model_name == "fusion_sem_seg":
         arrays = semseg_request(batch)
+    elif spec.task == "classification":
+        arrays = [_clouds(r, batch)]
     else:
         arrays = [_clouds(r, batch), r.rand(batch, 64, 64, 3).astype(
             np.float32)]
@@ -314,9 +360,16 @@ def _serve(model_name: str, dtype, batch: int) -> dict:
     def call():
         return pred(*inputs)
 
-    return {"stage_ms": stage_times(pred.model, call,
-                                    serve_spans(pred.model)),
-            "profile": kernel_table(call)}
+    reps = 10
+    with timed_calls(ops, "knn_point") as knn:
+        stage = stage_times(pred.model, call, serve_spans(pred.model), reps)
+    if knn:  # two selections a forward, SA1's then SA2's, in the timed reps
+        torch.cuda.synchronize()
+        timed = knn[-2 * reps:]
+        for i, name in enumerate(("knn_sa1", "knn_sa2")):
+            stage[name] = float(np.median([a.elapsed_time(b)
+                                           for a, b in timed[i::2]]))
+    return {"stage_ms": stage, "profile": kernel_table(call)}
 
 
 def _train(model_name: str, dtype, batch: int) -> dict:
@@ -340,6 +393,9 @@ def _train(model_name: str, dtype, batch: int) -> dict:
         arrays = dict(zip(names, semseg_request(batch)))
         arrays["seg"] = r.randint(0, ncls, arrays["points"].shape[:2]
                                   ).astype(np.int32)
+    elif spec.task == "classification":
+        arrays = {"points": _clouds(r, batch),
+                  "label": r.randint(0, ncls, batch).astype(np.int32)}
     else:
         eye = np.eye(3, dtype=np.float32)
         arrays = {
@@ -361,13 +417,15 @@ def _train(model_name: str, dtype, batch: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
-    p.add_argument("--model", choices=("fusion_cls", "fusion_sem_seg"),
+    p.add_argument("--model", choices=("fusion_cls", "fusion_sem_seg",
+                                       "pointnet2_cls_knn",
+                                       "pointnet2_cls_ssg"),
                    default="fusion_cls")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
     p.add_argument("--batch", type=int, default=None,
-                   help="default: 128 serving fusion_cls, 16 serving "
-                        "fusion_sem_seg, 24 training")
+                   help="default: 128 serving a cloud classifier, 16 "
+                        "serving fusion_sem_seg, 24 training")
     p.add_argument("--out", default="chiprun_out")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

@@ -39,7 +39,20 @@ def fake_kernels(monkeypatch):
     monkeypatch.setattr(ck, "_fn", lambda symbol: (lambda: 1 << 20))
 
     def launch(symbol, *a):
-        if symbol == "mm3d_three_nn":
+        if symbol == "mm3d_fps":
+            a[2].copy_(tops.fps_torch(a[0], a[5], a[1]))
+        elif symbol == "mm3d_ball_query":
+            a[2].copy_(tops.ball_query_torch(np.sqrt(a[7]), a[6], a[0], a[1]))
+        elif symbol in ("mm3d_fused_sa", "mm3d_fused_sa_idx"):
+            # the tail over the unpadded operands
+            given = symbol == "mm3d_fused_sa_idx"
+            pre, cbias, w1, b1, w2, b2, out = a[3 - given:10 - given]
+            K, C1, C3 = a[13 - given:16 - given]
+            idx = (a[1] if given else
+                   tops.ball_query_torch(np.sqrt(a[-2]), K, a[1], a[2]))
+            out.copy_(tops.fused_sa_idx_torch(K, idx, pre, cbias, w1[:C1], b1,
+                                              w2[:, :C3], b2[:C3]))
+        elif symbol == "mm3d_three_nn":
             d, i = tops.three_nn_torch(a[0], a[1])
             a[2].copy_(d)
             a[3].copy_(i)
