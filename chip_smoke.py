@@ -17,10 +17,13 @@ that goes wrong:
    indices at K=48), the gather backward, the fused
    FP tail (fusion_sem_seg's FP2 and FP1, plus tie cases) and the bilinear
    image sampling within the stated tolerances (the gather backward also
-   bit-identical across two launches); at fusion_sem_seg's training shapes
-   (B=24 blocks of 2048 points) three_nn and three_interpolate bit-exact
-   (tie cases included), and the backwards of three_interpolate and of the
-   sampling against autograd of the plain path. It times the kernel, its
+   bit-identical across two launches and bit for bit equal to its twin run
+   on the host copies, in f32 and bf16); at fusion_sem_seg's training
+   shapes (B=24 blocks of 2048 points) three_nn and three_interpolate
+   bit-exact (tie cases included), the backwards of three_interpolate and
+   of the sampling against autograd of the plain path, and the weighted
+   gather-backward launch each of them makes, captured and held to the
+   host twin bit for bit and timed alone. It times the kernel, its
    plain twin and, where one PyTorch call computes the same function, that
    call: the device time per call from torch.profiler (``ms``, ``plain_ms``,
    ``library_ms``, the numbers of the kernels line) and CUDA events around
@@ -232,6 +235,101 @@ def expect(cuda_kernels, **nonzero):
 # ------------------------------------------------------------ phases
 
 
+def gather_backward_check(torch, ops, label, gg, idx, n, w=None):
+    """The gather backward's kernel (either form) on the card: bit for bit
+    the plain twin run on the host copies (CPU index_add_ sums each row in
+    ascending order, the kernel's order), two launches identical, and
+    within the sum-order bound of the card's twin (whose CUDA index_add_
+    takes a new order on every call) -> the entry of its row."""
+    dt = gg.dtype
+    wcpu = None if w is None else w.cpu()
+    got = ops.gather_backward(gg, idx, n, w)
+    again = ops.gather_backward(gg, idx, n, w)
+    with ops.use_impl("torch"):
+        want = ops.gather_backward(gg, idx, n, w)
+    host = ops.gather_backward(gg.cpu(), idx.cpu(), n, wcpu)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == dt,
+          f"gather backward {label}: shape/dtype")
+    check(torch.equal(got, again),
+          f"gather backward {label}: two launches differ")
+    check(torch.equal(got.cpu(), host),
+          f"gather backward {label}: not bit-identical with the host twin "
+          f"(max|d| {float((got.cpu().float() - host.float()).abs().max())})")
+    gf, wf = got.float(), want.float()
+    err = (gf - wf).abs()
+    # two f32 sums of the same terms in different orders differ by a
+    # rounding error that scales with the sum of the terms' sizes, not with
+    # the size of the sum: that part of the tolerance is relative to
+    # sum |term| per output element
+    with ops.use_impl("torch"):
+        size = ops.gather_backward(gg.abs(), idx, n,
+                                   None if w is None else w.abs()).float()
+    if dt == torch.bfloat16:
+        # one bf16 ulp of the larger of the two values; the weighted
+        # backwards' sums cancel (signed weights times signed cotangents),
+        # so there the f32 order error, carried through the one rounding to
+        # bf16, is added
+        mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+        if w is not None:
+            ulp = ulp + F32_RTOL * size
+        check(bool((err <= ulp).all()),
+              f"gather backward {label}: more than one bf16 ulp from the "
+              "card's twin")
+    else:
+        worst = float((err - F32_RTOL * size).max())
+        check(worst <= F32_ATOL,
+              f"gather backward {label}: |d| - rtol sum|g| max {worst}")
+    return {"dtype": str(dt).split(".")[-1], "bit_identical_host": True,
+            "relaunch_identical": True, "max_abs_err": float(err.max())}
+
+
+def captured_gathers(cuda_kernels, fn):
+    """Run fn() and return the operands (g, idx, n, weight) of each
+    gather_backward call it makes: the weighted launches at the shapes the
+    backwards of three_interpolate and of the sampling give them."""
+    calls, orig = [], cuda_kernels.gather_backward
+
+    def recorder(g, idx, n, weight=None):
+        calls.append((g, idx, n, weight))
+        return orig(g, idx, n, weight)
+
+    # the wrapper counts its launches on the module's gather_backward
+    recorder.launches = orig.launches
+    cuda_kernels.gather_backward = recorder
+    try:
+        fn()
+    finally:
+        cuda_kernels.gather_backward = orig
+        orig.launches = recorder.launches
+    return calls
+
+
+def weighted_gather_row(torch, ops, cuda_kernels, label, fn, record):
+    """The weighted gather launch that fn() (one backward) makes: checked
+    as ``gather_backward_check`` does, timed alone against its byte bound
+    and against the card's twin."""
+    calls = captured_gathers(cuda_kernels, fn)
+    check(len(calls) == 1 and calls[0][3] is not None,
+          f"{label}: expected one weighted gather backward, got "
+          f"{[(tuple(c[0].shape), c[3] is not None) for c in calls]}")
+    gg, idx, n, w = calls[0]
+    entry = gather_backward_check(torch, ops, label, gg, idx, n, w)
+    entry.update(times(torch, lambda: ops.gather_backward(gg, idx, n, w), 20))
+    with ops.use_impl("torch"):
+        entry.update(times(torch, lambda: ops.gather_backward(
+            gg, idx, n, w), 10, "plain_"))
+    entry["library_ms"] = None  # no single PyTorch call weighs and scatters
+    B, R, C = gg.shape
+    k, es = idx.shape[-1], gg.element_size()
+    # g, idx and weight read once, d written once; a product and a sum per
+    # contribution and channel
+    entry.update(bound(B * R * C * es + B * R * k * (4 + es)
+                       + B * n * C * es, {"float32": 2 * B * R * k * C}))
+    record("gather_backward_weighted", label, entry)
+
+
 def kernel_checks(torch, ops, geometry, dev):
     """Each kernel against its plain twin at the serving path's shapes."""
     rng = np.random.RandomState(0)
@@ -416,55 +514,31 @@ def kernel_checks(torch, ops, geometry, dev):
             record("fused_sa_idx", f"{label} {dtname}", entry)
 
     # --- gather backward: the train path's SA1 and SA2 shapes at B=24 with
-    # the ball query's own indices, a bf16 g, and random indices with an
-    # unaligned n=100, C=24
+    # the ball query's own indices, in f32 and bf16, and random indices
+    # (out-of-range ones among them) with an unaligned n=100, C=24
     TB = TRAIN_BATCH
     with ops.use_impl("torch"):
         idx1 = ops.query_ball_point(0.2, 32, xyz1[:TB], c1[:TB])
         idx2 = ops.query_ball_point(0.4, 64, c1[:TB], c2[:TB])
     g = np.random.RandomState(2)
-    ridx = torch.from_numpy(g.randint(0, 100, (2, 30, 4)).astype(np.int32))
+    ridx = torch.from_numpy(g.randint(-3, 103, (2, 30, 4)).astype(np.int32))
     for label, idx, n, C, dt, timed in (
             ("SA1 g[24,512,32,64] n=1024 f32", idx1, NPOINT, 64,
              torch.float32, True),
             ("SA2 g[24,128,64,128] n=512 f32", idx2, 512, 128,
              torch.float32, True),
             ("SA1 g[24,512,32,64] n=1024 bf16", idx1, NPOINT, 64,
-             torch.bfloat16, False),
+             torch.bfloat16, True),
+            ("SA2 g[24,128,64,128] n=512 bf16", idx2, 512, 128,
+             torch.bfloat16, True),
             ("random idx n=100 C=24 f32", ridx.to(dev), 100, 24,
+             torch.float32, False),
+            ("random idx n=50000 C=3 f32", torch.from_numpy(g.randint(
+                -5, 50005, (2, 4096)).astype(np.int32)).to(dev), 50000, 3,
              torch.float32, False)):
         gg = torch.from_numpy(g.randn(*idx.shape, C).astype(np.float32)).to(
             dev).to(dt)
-        got = ops.gather_backward(gg, idx, n)
-        again = ops.gather_backward(gg, idx, n)
-        with ops.use_impl("torch"):
-            want = ops.gather_backward(gg, idx, n)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == dt,
-              f"gather backward {label}: shape/dtype")
-        check(torch.equal(got, again),
-              f"gather backward {label}: two launches differ")
-        gf, wf = got.float(), want.float()
-        err = (gf - wf).abs()
-        if dt == torch.bfloat16:
-            # one bf16 ulp of the larger of the two values
-            mag = torch.maximum(gf.abs(), wf.abs()).clamp_min(2.0 ** -126)
-            ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
-            check(bool((err <= ulp).all()),
-                  f"gather backward {label}: more than one bf16 ulp")
-        else:
-            # two f32 sums of the same terms in different orders (the plain
-            # twin's atomics take a new order on every call) differ by a
-            # rounding error that scales with the sum of the terms' sizes,
-            # not with the size of the sum: the tolerance is relative to
-            # sum |g| per output element
-            with ops.use_impl("torch"):
-                size = ops.gather_backward(gg.abs(), idx, n)
-            worst = float((err - F32_RTOL * size).max())
-            check(worst <= F32_ATOL,
-                  f"gather backward {label}: |d| - rtol sum|g| max {worst}")
-        entry = {"dtype": str(dt).split(".")[-1], "bit_identical": True,
-                 "max_abs_err": float(err.max())}
+        entry = gather_backward_check(torch, ops, label, gg, idx, n)
         if timed:
             B, C_ = gg.shape[0], gg.shape[-1]
             F = idx[0].numel()
@@ -474,18 +548,29 @@ def kernel_checks(torch, ops, geometry, dev):
                 entry.update(times(
                     torch, lambda: ops.gather_backward(gg, idx, n), 20,
                     "plain_"))
-            # the library yardstick: one index_add_ into zeros, with the
-            # flat int64 row index built beforehand
+            # the library yardstick: one index_add_ into zeros of g's dtype
+            # (bf16 sums in bf16 there), with the flat int64 row index built
+            # beforehand
             offs = (torch.arange(B, device=dev) * n).reshape(B, 1, 1)
             flat_idx = (idx.long() + offs).reshape(-1)
             flat_g = gg.reshape(-1, C_)
             entry.update(times(torch, lambda: torch.zeros(
-                B * n, C_, device=dev).index_add_(0, flat_idx, flat_g), 20,
-                "library_"))
+                B * n, C_, device=dev, dtype=dt).index_add_(
+                    0, flat_idx, flat_g), 20, "library_"))
             es = gg.element_size()
             entry.update(bound(B * F * C_ * es + B * F * 4 + B * n * C_ * es,
                                {"float32": B * F * C_}))
         record("gather_backward", label, entry)
+    # the weighted form on the scalar path (C=24), out-of-range indices,
+    # f32 and bf16
+    for dt in (torch.float32, torch.bfloat16):
+        label = f"random weighted idx [2,30,4] n=100 C=24 {dt}"
+        gg = torch.from_numpy(g.randn(2, 30, 24).astype(np.float32)).to(
+            dev).to(dt)
+        w = torch.from_numpy(g.rand(2, 30, 4).astype(np.float32)).to(
+            dev).to(dt)
+        record("gather_backward_weighted", label, gather_backward_check(
+            torch, ops, label, gg, ridx.to(dev), 100, w))
     semseg_kernel_checks(torch, ops, dev, record)
     semseg_train_kernel_checks(torch, ops, dev, record)
     return rows
@@ -649,7 +734,7 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
     bf16 (a different f32 sum can round to a neighbouring bf16 value)."""
     import torch.nn.functional as F
     from mm3d_tpu_torch.data.synthetic import semseg_request
-    from mm3d_tpu_torch.ops import projection
+    from mm3d_tpu_torch.ops import cuda_kernels, projection
 
     B, N = TRAIN_BATCH, SEG_NPOINT
     pts, _, K, R, t = (torch.from_numpy(a).to(dev)
@@ -766,6 +851,11 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
                                + B * M * C * es,
                                {"float32": 2 * 3 * B * Nx * C}))
             record("three_interpolate_backward", f"{label} {dtname}", entry)
+            weighted_gather_row(
+                torch, ops, cuda_kernels,
+                f"three_interpolate d_points {label} {dtname}",
+                lambda: torch.autograd.grad(ok_, pk, co, retain_graph=True),
+                record)
 
     # --- the sampling's backward: a [24,16,16,128] map at the projected
     # points (out-of-frame and behind-camera points included)
@@ -813,6 +903,11 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
                            {"float32": 12 * B * N * C}))
         record("bilinear_backward", f"map [{B},{H},{W},{C}] at {B}x{N} "
                                     f"points {dtname}", entry)
+        weighted_gather_row(
+            torch, ops, cuda_kernels, f"bilinear d_feat map [{B},{H},{W},"
+            f"{C}] at {B}x{N} points {dtname} (f32 g)",
+            lambda: torch.autograd.grad(ok_, fk, co, retain_graph=True),
+            record)
 
 
 # launches per serving forward of the cloud classifiers: FPS at SA1 and SA2,

@@ -22,15 +22,15 @@ three_interpolate      csrc/three_interp.cu            three_interpolate_torch
 
 ``bilinear_sample`` and its twin are also the public names of
 ``ops.projection``; with a gradient wanted it runs as ``_BilinearSample``,
-whose backward (``bilinear_sample_backward``) scatters through the
-gather-backward kernel. ``geometry.three_nn`` and
+whose backward (``bilinear_sample_backward``) scatters through the weighted
+form of the gather-backward kernel. ``geometry.three_nn`` and
 ``geometry.three_interpolate`` are the public names of the last two.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -49,8 +49,13 @@ _SIGNATURES = {
     "mm3d_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
     "mm3d_fused_sa_idx": ("fused_sa", [_I] + [_P] * 8 + [_I] * 10 + [_P]),
-    "mm3d_gather_bwd": ("gather_bwd", [_I] + [_P] * 5 + [_I] * 4 + [_P]),
+    "mm3d_gather_bwd": ("gather_bwd", [_I, _I] + [_P] * 7 + [_I] * 6
+                        + [_P]),
     "mm3d_gather_bwd_max_rows": ("gather_bwd", []),
+    "mm3d_gather_bwd_max_rows_per_block": ("gather_bwd", []),
+    "mm3d_gather_bwd_max_contributions": ("gather_bwd", []),
+    "mm3d_gather_bwd_max_buckets": ("gather_bwd", []),
+    "mm3d_gather_bwd_tile": ("gather_bwd", []),
     "mm3d_fused_fp": ("fused_fp", [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
     "mm3d_fused_fp_max_sparse": ("fused_fp", []),
     "mm3d_bilinear": ("bilinear", [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
@@ -313,30 +318,61 @@ fused_sa_idx.launches = 0
 # ------------------------------------------- gather backward (scatter-add)
 
 
-def gather_backward_torch(g: torch.Tensor, idx: torch.Tensor,
-                          n: int) -> torch.Tensor:
+def gather_backward_torch(g: torch.Tensor, idx: torch.Tensor, n: int,
+                          weight: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Plain twin of the gather-backward kernel -> [B,n,C] in g's dtype.
 
-    d[b, idx[b,f]] += g[b,f], summed in f32 (f64 for f64 g) by one
-    ``index_add_``."""
+    Unweighted: d[b, idx[b,f]] += g[b,f]. Weighted (g [B,R,C], idx and
+    weight [B,R,k]): contribution f = r*k + j is g[b,r] * weight[b,r,j],
+    taken in f32 (f64 for f64 g) and rounded to g's dtype. The sums run in
+    f32 (f64) by one ``index_add_``, which on the host adds each row's
+    contributions in ascending f, the kernel's order. An index outside
+    [0, n) contributes nothing."""
     B, C = g.shape[0], g.shape[-1]
     acc = torch.promote_types(g.dtype, torch.float32)
+    src = g.to(acc)
+    if weight is not None:
+        src = (src[:, :, None, :] * weight.to(acc)[..., None]).to(
+            g.dtype).to(acc)
     offs = (torch.arange(B, device=idx.device, dtype=torch.int64) * n).reshape(
         (B,) + (1,) * (idx.dim() - 1))
-    flat = torch.zeros((B * n, C), dtype=acc, device=g.device)
-    flat.index_add_(0, (idx.long() + offs).reshape(-1),
-                    g.reshape(-1, C).to(acc))
-    return flat.reshape(B, n, C).to(g.dtype)
+    rows = idx.long()
+    # out-of-range contributions go to one spare row, dropped at the end
+    rows = torch.where((rows >= 0) & (rows < n), rows + offs, B * n)
+    flat = torch.zeros((B * n + 1, C), dtype=acc, device=g.device)
+    flat.index_add_(0, rows.reshape(-1), src.reshape(-1, C))
+    return flat[:B * n].reshape(B, n, C).to(g.dtype)
 
 
-def gather_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Backward of ``index_points``: g [B,...,C], idx [B,...] -> [B,n,C].
+def _gather_rows_per_block(B: int, n: int, C: int, sms: int, limit: int,
+                           buckets: int) -> int:
+    """Output rows per bucket (and per block) of the gather backward: about
+    six blocks (clouds x buckets x 32-channel slices) a multiprocessor,
+    three waves of its two resident blocks, which measured best at the
+    training shapes on the H100; at most ``limit`` rows and ``buckets``
+    buckets."""
+    slices = -(-C // 32)
+    want = max(1, (6 * sms) // max(1, B * slices))
+    rpb = max(1, min(limit, n, max(8, -(-n // want))))
+    return max(rpb, -(-n // buckets))
 
-    Duplicate indices accumulate; sums are taken in f32 and cast to g's
-    dtype (f32 or bf16). Two launches on the same inputs give identical
-    bits: each output row sums its contributors in ascending order."""
+
+def gather_backward(g: torch.Tensor, idx: torch.Tensor, n: int,
+                    weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scatter-add backward of the gathers -> [B,n,C] in g's dtype.
+
+    Unweighted (``index_points``' backward): g [B,...,C], idx [B,...],
+    d[b, idx[b,f]] += g[b,f]. Weighted (the backwards of three_interpolate
+    and of the bilinear sampling): g [B,R,C], idx [B,R,k] int32, weight
+    [B,R,k] in g's dtype; contribution f = r*k + j adds g[b,r] *
+    weight[b,r,j], the product taken in f32 and rounded to g's dtype. Sums
+    are taken in f32 in ascending f for each output row and cast to g's
+    dtype (f32 or bf16); an index outside [0, n) contributes nothing. The
+    result equals ``gather_backward_torch`` run on the host bit for bit, and
+    two launches give identical bits."""
     if dispatch.resolve(g) == "torch":
-        return gather_backward_torch(g, idx, n)
+        return gather_backward_torch(g, idx, n, weight)
     dev, dt = g.device, g.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"gather_backward takes bf16 or f32 g, got {dt}")
@@ -345,22 +381,56 @@ def gather_backward(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
     B, C = g.shape[0], g.shape[-1]
-    if tuple(g.shape[:-1]) != tuple(idx.shape):
-        raise ValueError(f"g {tuple(g.shape)} does not match idx "
-                         f"{tuple(idx.shape)}")
+    if weight is None:
+        if tuple(g.shape[:-1]) != tuple(idx.shape):
+            raise ValueError(f"g {tuple(g.shape)} does not match idx "
+                             f"{tuple(idx.shape)}")
+        R, k = (idx[0].numel() if B else 0), 1
+    else:
+        if weight.device != dev:
+            raise ValueError(f"weight is on {weight.device}, expected {dev}")
+        if weight.dtype != dt:
+            raise TypeError(f"weight must be in g's dtype {dt}, got "
+                            f"{weight.dtype}")
+        if (g.dim() != 3 or idx.dim() != 3
+                or tuple(idx.shape[:2]) != tuple(g.shape[:2])
+                or weight.shape != idx.shape):
+            raise ValueError(f"weighted gather_backward takes g [B,R,C], idx "
+                             f"and weight [B,R,k]; got g {tuple(g.shape)}, "
+                             f"idx {tuple(idx.shape)}, weight "
+                             f"{tuple(weight.shape)}")
+        R, k = g.shape[1], idx.shape[2]
     limit = _fn("mm3d_gather_bwd_max_rows")()
     if n > limit:
         raise ValueError(f"gather_backward takes at most {limit} rows, got {n}")
-    F = idx[0].numel() if B else 0
+    most = _fn("mm3d_gather_bwd_max_contributions")()
+    if R * k > most:
+        raise ValueError(f"gather_backward takes at most {most} contributions "
+                         f"a cloud, got {R * k}")
     out = torch.empty((B, n, C), dtype=dt, device=dev)
     if B * n * C == 0:
         return out
     g = g.contiguous()
     idx = idx.contiguous()
-    row_start = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
-    perm = torch.empty((B, F), dtype=torch.int32, device=dev)
-    _launch("mm3d_gather_bwd", int(dt == torch.bfloat16), _ptr(g), _ptr(idx),
-            _ptr(row_start), _ptr(perm), _ptr(out), B, F, n, C, _stream(g))
+    if weight is not None:
+        weight = weight.contiguous()
+    # multiprocessors: the card's; the H100's 132 where the CPU tests fake
+    # the kernel path
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    rpb = _gather_rows_per_block(
+        B, n, C, sms, _fn("mm3d_gather_bwd_max_rows_per_block")(),
+        _fn("mm3d_gather_bwd_max_buckets")())
+    # scratch: per tile and bucket counts, the bucketed list, bucket starts
+    tiles = -(-R * k // _fn("mm3d_gather_bwd_tile")())
+    nb = -(-n // rpb)
+    cnt = torch.empty((B, max(tiles, 1), nb), dtype=torch.int32, device=dev)
+    lst = torch.empty((B, max(R * k, 1)), dtype=torch.int32, device=dev)
+    bstart = torch.empty((B, nb + 1), dtype=torch.int32, device=dev)
+    _launch("mm3d_gather_bwd", int(dt == torch.bfloat16), _vec_ok(C, g),
+            _ptr(g), _ptr(idx), None if weight is None else _ptr(weight),
+            _ptr(out), _ptr(cnt), _ptr(lst), _ptr(bstart), B, R, k, n, C,
+            rpb, _stream(g))
     gather_backward.launches += 1
     return out
 
@@ -526,39 +596,45 @@ def bilinear_sample_backward(feat: torch.Tensor, uv: torch.Tensor,
 
     The VJP of the f32 lerp of ``projection._bilinear_sample_jax``, as the
     JAX package's ``_bilinear_bwd`` takes it (``pallas_kernels.py:1507-1517``):
-    g cast to f32 (f64 stays f64); the four corner cotangents
-    (g (1-dv)) (1-du), (g (1-dv)) du, (g dv) (1-du), (g dv) du, each zeroed
-    outside the frame; then ONE ``gather_backward`` of the [B,N,4,C] stack by
-    the corner rows [B,N,4] into the H*W rows of the map (the hand-written
-    deterministic kernel on the card, not ``index_add_``), cast to feat's
-    dtype. d_uv (sum over channels of g times the lerp's slopes; floor()
-    passes no gradient) only when ``want_uv``."""
+    g cast to f32 (f64 stays f64); the four corner weights
+    ((1-dv)(1-du)) m00, ((1-dv) du) m10, (dv (1-du)) m01, (dv du) m11, each
+    m zero outside the frame; then ONE weighted ``gather_backward`` of g by
+    the corner rows [B,N,4] and those weights [B,N,4] into the H*W rows of
+    the map (the hand-written deterministic kernel on the card, not
+    ``index_add_``), cast to feat's dtype. A corner's contribution g * w is
+    rounded once, where the JAX VJP's (g (1-dv)) (1-du) rounds twice, so
+    d_feat differs from it (and from this function before the weighted
+    form) in the last bits. d_uv (sum over channels of g times the lerp's
+    slopes; floor() passes no gradient) only when ``want_uv``."""
     B, H, W, C = feat.shape
     acc_dt = torch.promote_types(g.dtype, torch.float32)
     g = g.to(acc_dt)
     u, v = uv[..., 0].to(acc_dt), uv[..., 1].to(acc_dt)
     x0, y0 = torch.floor(u), torch.floor(v)
-    du, dv = (u - x0)[..., None], (v - y0)[..., None]
-    rows, masks = [], []
-    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
-        x, y = x0 + dx, y0 + dy
-        masks.append(((x >= 0) & (x < W) & (y >= 0) & (y < H))[..., None]
-                     .to(acc_dt))
-        rows.append(y.clamp(0, H - 1).to(torch.int32) * W
-                    + x.clamp(0, W - 1).to(torch.int32))
+    du, dv = u - x0, v - y0
+    # the corners (0,0), (1,0), (0,1), (1,1) on a last axis of 4: a few
+    # elementwise passes over [B,N,4] rather than four over [B,N] each
+    x = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
+    y = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
+    xc, yc = x.clamp(0, W - 1), y.clamp(0, H - 1)
+    # x and y are whole numbers: in the frame exactly where clamping keeps
+    # them (NaN and +-inf are outside)
+    inside = ((xc == x) & (yc == y)).to(acc_dt)
+    rows = (yc * W + xc).to(torch.int32)  # [B,N,4], exact in floats
     d_feat = d_uv = None
-    d_top, d_bot = g * (1 - dv), g * dv
     if want_feat:
-        corner_g = torch.stack([d_top * (1 - du) * masks[0],
-                                d_top * du * masks[1],
-                                d_bot * (1 - du) * masks[2],
-                                d_bot * du * masks[3]], dim=2)  # [B,N,4,C]
-        d_feat = gather_backward(corner_g, torch.stack(rows, dim=2), H * W)
+        omdu, omdv = 1 - du, 1 - dv
+        w = (torch.stack([omdv, omdv, dv, dv], dim=-1)
+             * torch.stack([omdu, du, omdu, du], dim=-1)) * inside
+        d_feat = gather_backward(g, rows, H * W, w)
         d_feat = d_feat.reshape(B, H, W, C).to(feat.dtype)
     if want_uv:
+        du, dv = du[..., None], dv[..., None]
+        d_top, d_bot = g * (1 - dv), g * dv
         flat = feat.reshape(B, H * W, C)
-        c00, c10, c01, c11 = (_gather(flat, r).to(acc_dt) * m
-                              for r, m in zip(rows, masks))
+        c00, c10, c01, c11 = (
+            _gather(flat, rows[..., i]).to(acc_dt) * inside[..., i, None]
+            for i in range(4))
         top = c00 * (1 - du) + c10 * du
         bot = c01 * (1 - du) + c11 * du
         d_u = (d_top * (c10 - c00) + d_bot * (c11 - c01)).sum(-1)

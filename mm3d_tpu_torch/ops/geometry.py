@@ -227,10 +227,12 @@ class _ThreeInterpolate(torch.autograd.Function):
     ``_three_interp_bwd`` (``pallas_kernels.py:1442-1453``): the cotangent,
     cast to the twin's output dtype, gives
 
-        d_points = gather_backward(g[:, :, None, :] * w[..., None], idx, M)
+        d_points = gather_backward(g, idx, M, w)   (d[idx_k] += g * w_k)
         d_weight = sum_c g * points[idx]      (only when wanted)
 
-    with w the weight in points' dtype. ``gather_backward`` is the
+    with w the weight in points' dtype. The weighted ``gather_backward``
+    rounds each product g * w_k to that dtype, as g[:, :, None, :] *
+    w[..., None] does, without building that [B,N,3,C] stack; it is the
     hand-written kernel on the card. The forward and the backward run under
     the impl mode in force at the forward (autograd runs a CUDA backward on
     its own thread, as for ``_IndexPoints``)."""
@@ -251,9 +253,8 @@ class _ThreeInterpolate(torch.autograd.Function):
         d_points = d_weight = None
         with dispatch.use_impl(ctx.impl):
             if ctx.needs_input_grad[0]:
-                gw = g[:, :, None, :] * weight.to(dt)[..., None]  # [B,N,3,C]
-                d_points = cuda_kernels.gather_backward(gw, idx,
-                                                        points.shape[1])
+                d_points = cuda_kernels.gather_backward(
+                    g, idx, points.shape[1], weight.to(dt))
         if ctx.needs_input_grad[2]:
             acc_dt = torch.promote_types(dt, torch.float32)
             d_weight = (g[:, :, None, :].to(acc_dt)

@@ -41,7 +41,7 @@ BEST_METRIC = {"classification": "instance_acc",
 
 @dataclasses.dataclass
 class TrainConfig:
-    model: str = "fusion_cls"
+    model: str = "pointnet2_cls_ssg"
     epochs: int = 10
     batch_size: int = 24
     npoint: int = 1024

@@ -59,7 +59,7 @@ def fake_kernels(monkeypatch):
         elif symbol == "mm3d_three_interp":
             a[5].copy_(tops.three_interpolate_torch(a[2], a[3], a[4]))
         elif symbol == "mm3d_gather_bwd":
-            a[5].copy_(tops.gather_backward_torch(a[1], a[2], a[8]))
+            a[5].copy_(tops.gather_backward_torch(a[2], a[3], a[12], a[4]))
         elif symbol == "mm3d_bilinear":
             a[4].copy_(tops.bilinear_sample_torch(a[2], a[3]))
         else:

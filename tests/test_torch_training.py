@@ -609,8 +609,9 @@ def test_optimizer_matches_optax_adam_and_sgd():
 
 
 def test_trainer_fit_one_tiny_epoch_on_cpu():
-    cfg = TrainConfig(epochs=1, batch_size=4, npoint=64, num_class=4,
-                      train_size=8, test_size=6, image_hw=(16, 16),
+    cfg = TrainConfig(model="fusion_cls", epochs=1, batch_size=4,
+                      npoint=64, num_class=4, train_size=8, test_size=6,
+                      image_hw=(16, 16),
                       device="cpu", dtype="bfloat16", bn_refresh_steps=1,
                       fps_random_start=True)
     tr = Trainer(cfg)
