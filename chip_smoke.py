@@ -12,9 +12,15 @@ that goes wrong:
    kernels of mm3d_tpu_torch/csrc from source, printing the build seconds;
 2. holds each kernel against its plain PyTorch twin (``use_impl("torch")``)
    on the card at the shapes of the serving and training paths: FPS and
-   ball query bit-exact, the fused SA tail, the given-index fused SA tail
-   (SA1 and SA2 over the indices of knn_point, plus a row of repeated
-   indices at K=48), the gather backward, the fused
+   ball query bit-exact, the fused SA tail (SA1, SA2 and zero-hit
+   centroids), the given-index fused SA tail (SA1 and SA2 over the indices
+   of knn_point, plus a row of repeated indices at K=48), both forms at the
+   other widths the JAX models route to the fused tail (config 3's
+   (128,196,256) at K=128, the segmentation models' sa4 blocks, whose
+   weights stream through shared memory, and (16,16,32) at K=16; bf16, and
+   f32 where its plan fits), a bf16 width only the loop kernel holds
+   ((32,640,64)), the ball-query form at K=256 and K=200 (and K=256 at
+   (64,128,512), weights streamed), the gather backward, the fused
    FP tail (fusion_sem_seg's FP2 and FP1, plus tie cases) and the bilinear
    image sampling within the stated tolerances (the gather backward also
    bit-identical across two launches and bit for bit equal to its twin run
@@ -330,8 +336,41 @@ def weighted_gather_row(torch, ops, cuda_kernels, label, fn, record):
     record("gather_backward_weighted", label, entry)
 
 
+def sa_operands(torch, g, dev, B, N, S, C1, C2, C3):
+    """pre, cbias, w1, b1, w2, b2 of a fused SA call, f32 on the card (the
+    draws of tests/test_fused_sa.py)."""
+    return [torch.from_numpy(a).to(dev) for a in (
+        g.randn(B, N, C1).astype(np.float32),
+        g.randn(B, S, C1).astype(np.float32),
+        (g.randn(C1, C2) * 0.3).astype(np.float32),
+        g.randn(C2).astype(np.float32),
+        (g.randn(C2, C3) * 0.3).astype(np.float32),
+        g.randn(C3).astype(np.float32))]
+
+
+def sa_check(torch, ops, label, fn, shape, dt):
+    """One fused SA form (fn) against its plain twin on the same inputs:
+    bf16 max|d| / (|ref| + 1) < BF16_REL_TOL, f32 within F32_RTOL and
+    F32_ATOL -> the entry of its row."""
+    got = fn()
+    with ops.use_impl("torch"):
+        want = fn()
+    torch.cuda.synchronize()
+    check(got.shape == shape and got.dtype == dt, f"{label}: shape/dtype")
+    gf, wf = got.float(), want.float()
+    err = (gf - wf).abs()
+    if dt == torch.bfloat16:
+        rel = float((err / (wf.abs() + 1)).max())
+        check(rel < BF16_REL_TOL, f"{label}: max|d|/(|ref|+1) {rel}")
+    else:
+        worst = float((err - F32_RTOL * wf.abs()).max())
+        check(worst <= F32_ATOL, f"{label}: |d| - rtol|ref| max {worst}")
+    return {"dtype": str(dt).split(".")[-1], "max_abs_err": float(err.max())}
+
+
 def kernel_checks(torch, ops, geometry, dev):
     """Each kernel against its plain twin at the serving path's shapes."""
+    from mm3d_tpu_torch.ops import cuda_kernels
     rng = np.random.RandomState(0)
     xyz1 = torch.from_numpy(unit_sphere_clouds(rng, BATCH, NPOINT)).to(dev)
     with ops.use_impl("torch"):
@@ -404,53 +443,37 @@ def kernel_checks(torch, ops, geometry, dev):
                 {"float32": BQ_FLOPS_PER_POINT * visits}))
         record("ball_query", label, entry)
 
-    # --- fused SA tail: SA1 and SA2 shapes, bf16 and fp32
+    # --- fused SA tail: SA1 and SA2 shapes, bf16 and fp32, timed; zero-hit
+    # centroids (untimed)
     g = np.random.RandomState(1)
-    for label, radius, K, x, cents, (C1, C2, C3) in (
-            ("SA1", 0.2, 32, xyz1, c1, (64, 64, 128)),
-            ("SA2", 0.4, 64, c1, c2, (128, 128, 256))):
+    for label, radius, K, x, cents, (C1, C2, C3), timed in (
+            ("SA1", 0.2, 32, xyz1, c1, (64, 64, 128), True),
+            ("SA2", 0.4, 64, c1, c2, (128, 128, 256), True),
+            ("zero-hit centroids", 0.2, 32, xyz1, far, (64, 64, 128),
+             False)):
         B, N, _ = x.shape
         S = cents.shape[1]
-        base = [torch.from_numpy(a).to(dev) for a in (
-            g.randn(B, N, C1).astype(np.float32),
-            g.randn(B, S, C1).astype(np.float32),
-            (g.randn(C1, C2) * 0.3).astype(np.float32),
-            g.randn(C2).astype(np.float32),
-            (g.randn(C2, C3) * 0.3).astype(np.float32),
-            g.randn(C3).astype(np.float32))]
+        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
         visits = ball_query_visits(torch, geometry, radius, K, x, cents)
         for dtname, dt in (("bfloat16", torch.bfloat16),
                            ("float32", torch.float32)):
             args = (radius, K, x, cents, *[a.to(dt) for a in base])
-            got = ops.fused_sa(*args)
-            with ops.use_impl("torch"):
-                want = ops.fused_sa(*args)
-            torch.cuda.synchronize()
-            check(got.shape == (B, S, C3) and got.dtype == dt,
-                  f"fused SA {label} {dtname}: shape/dtype")
-            gf, wf = got.float(), want.float()
-            err = (gf - wf).abs()
-            if dt == torch.bfloat16:
-                rel = float((err / (wf.abs() + 1)).max())
-                check(rel < BF16_REL_TOL,
-                      f"fused SA {label} bf16: max|d|/(|ref|+1) {rel}")
-            else:
-                worst = float((err - F32_RTOL * wf.abs()).max())
-                check(worst <= F32_ATOL,
-                      f"fused SA {label} fp32: |d| - rtol|ref| max {worst}")
-            es = 2 if dt == torch.bfloat16 else 4
-            entry = {"dtype": dtname, "max_abs_err": float(err.max()),
-                     **times(torch, lambda: ops.fused_sa(*args), 20)}
-            with ops.use_impl("torch"):
-                entry.update(times(torch, lambda: ops.fused_sa(*args), 5,
-                                   "plain_"))
-            # MLP products in the features' dtype, selection in f32
-            flops = {"bfloat16": 0, "float32": BQ_FLOPS_PER_POINT * visits}
-            flops[dtname] += 2 * B * S * K * (C1 * C2 + C2 * C3)
-            entry.update(bound(
-                (B * N + B * S) * 12 + (B * N * C1 + B * S * C1) * es
-                + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
-                flops))
+            entry = sa_check(torch, ops, f"fused SA {label} {dtname}",
+                             lambda: ops.fused_sa(*args), (B, S, C3), dt)
+            if timed:
+                entry.update(times(torch, lambda: ops.fused_sa(*args), 20))
+                with ops.use_impl("torch"):
+                    entry.update(times(torch, lambda: ops.fused_sa(*args), 5,
+                                       "plain_"))
+                # MLP products in the features' dtype, selection in f32
+                es = 2 if dt == torch.bfloat16 else 4
+                flops = {"bfloat16": 0,
+                         "float32": BQ_FLOPS_PER_POINT * visits}
+                flops[dtname] += 2 * B * S * K * (C1 * C2 + C2 * C3)
+                entry.update(bound(
+                    (B * N + B * S) * 12 + (B * N * C1 + B * S * C1) * es
+                    + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
+                    flops))
             record("fused_sa", f"{label} {dtname}", entry)
 
     # --- fused SA tail over given indices: SA1 and SA2 shapes with the kNN
@@ -467,33 +490,12 @@ def kernel_checks(torch, ops, geometry, dev):
         if not timed:
             idx[:, 5] = idx[:, 5, :1]
             idx[:, 9, ::2] = idx[:, 9, 1::2]
-        base = [torch.from_numpy(a).to(dev) for a in (
-            g.randn(B, N, C1).astype(np.float32),
-            g.randn(B, S, C1).astype(np.float32),
-            (g.randn(C1, C2) * 0.3).astype(np.float32),
-            g.randn(C2).astype(np.float32),
-            (g.randn(C2, C3) * 0.3).astype(np.float32),
-            g.randn(C3).astype(np.float32))]
+        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
         for dtname, dt in (("bfloat16", torch.bfloat16),
                            ("float32", torch.float32)):
             args = (K, idx, *[a.to(dt) for a in base])
-            got = ops.fused_sa_idx(*args)
-            with ops.use_impl("torch"):
-                want = ops.fused_sa_idx(*args)
-            torch.cuda.synchronize()
-            check(got.shape == (B, S, C3) and got.dtype == dt,
-                  f"fused SA idx {label} {dtname}: shape/dtype")
-            gf, wf = got.float(), want.float()
-            err = (gf - wf).abs()
-            if dt == torch.bfloat16:
-                rel = float((err / (wf.abs() + 1)).max())
-                check(rel < BF16_REL_TOL,
-                      f"fused SA idx {label} bf16: max|d|/(|ref|+1) {rel}")
-            else:
-                worst = float((err - F32_RTOL * wf.abs()).max())
-                check(worst <= F32_ATOL, f"fused SA idx {label} fp32: "
-                                         f"|d| - rtol|ref| max {worst}")
-            entry = {"dtype": dtname, "max_abs_err": float(err.max())}
+            entry = sa_check(torch, ops, f"fused SA idx {label} {dtname}",
+                             lambda: ops.fused_sa_idx(*args), (B, S, C3), dt)
             if timed:
                 entry.update(times(torch, lambda: ops.fused_sa_idx(*args),
                                    20))
@@ -512,6 +514,74 @@ def kernel_checks(torch, ops, geometry, dev):
                     + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
                     {dtname: 2 * B * S * K * (C1 * C2 + C2 * C3)}))
             record("fused_sa_idx", f"{label} {dtname}", entry)
+
+    # --- the ball-query form past 128 neighbours (untimed; the JAX kernel
+    # takes any K there): one centroid a tile, walked in blocks of 128 rows;
+    # at (64,128,512) the weights stream, once for each block (bf16: the f32
+    # plan does not fit)
+    g = np.random.RandomState(8)
+    for label, B, N, S, radius, K, (C1, C2, C3), f32, resident in (
+            ("K=256 (64,64,128)", 8, 1024, 64, 0.6, 256, (64, 64, 128), True,
+             True),
+            ("K=200 (64,64,128)", 8, 512, 64, 0.8, 200, (64, 64, 128), True,
+             True),
+            ("K=256 streamed (64,128,512)", 8, 1024, 64, 0.6, 256,
+             (64, 128, 512), False, False)):
+        plan = cuda_kernels.sa_plan(C1, C2, C3, K, S, torch.bfloat16, N)
+        check((plan.rows, plan.resident) == (256, resident),
+              f"fused SA {label}: plan {plan}")
+        x = torch.from_numpy(unit_sphere_clouds(g, B, N)).to(dev)
+        with ops.use_impl("torch"):
+            cents = geometry.index_points(x, geometry.fps_torch(x, S))
+        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32))[:2 if f32 else 1]:
+            w = [a.to(dt) for a in base]
+            record("fused_sa", f"{label} {dtname}", sa_check(
+                torch, ops, f"fused SA {label} {dtname}",
+                lambda: ops.fused_sa(radius, K, x, cents, *w), (B, S, C3),
+                dt))
+
+    # --- both forms at the other widths the JAX models route to the fused
+    # tail in bf16 eval (untimed), each at its block's own point and
+    # centroid counts: config 3's sa2 (128,196,256) at K=128, St=1 (C2 not a
+    # multiple of 16); the sa4 blocks of PointNet2SemSeg (256,256,512) and
+    # PointNet2SemSegMSG (256,384,512) at K=32, whose weights stream through
+    # shared memory; PointNet2SemSegMSG's sa1 (16,16,32) at K=16. bf16, the
+    # serving dtype, always; f32 where its plan fits shared memory (the sa4
+    # widths' is refused before any launch, tests/test_torch_fused_sa.py).
+    # Then a width no model routes, (32,640,64), whose bf16 tile the wgmma
+    # kernel cannot hold: the loop kernel takes it (producers 0)
+    g = np.random.RandomState(7)
+    for label, B, N, S, radius, K, (C1, C2, C3), f32 in (
+            ("config 3 sa2 (128,196,256) K=128", 16, 512, 128, 0.8, 128,
+             (128, 196, 256), True),
+            ("semseg sa4 (256,256,512) K=32", 16, 64, 16, 0.8, 32,
+             (256, 256, 512), False),
+            ("semseg MSG sa4 (256,384,512) K=32", 16, 64, 16, 0.8, 32,
+             (256, 384, 512), False),
+            ("semseg MSG sa1 (16,16,32) K=16", 8, 4096, 1024, 0.05, 16,
+             (16, 16, 32), True),
+            ("bf16 loop kernel (32,640,64) K=32", 8, 1024, 256, 0.2, 32,
+             (32, 640, 64), False)):
+        check((cuda_kernels.sa_plan(C1, C2, C3, K, S, torch.bfloat16,
+                                    N).producers == 0) == (C2 == 640),
+              f"fused SA {label}: not on the kernel it names")
+        x = torch.from_numpy(unit_sphere_clouds(g, B, N)).to(dev)
+        with ops.use_impl("torch"):
+            cents = geometry.index_points(x, geometry.fps_torch(x, S))
+        idx = ops.knn_point(K, x, cents)
+        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32))[:2 if f32 else 1]:
+            w = [a.to(dt) for a in base]
+            record("fused_sa", f"{label} {dtname}", sa_check(
+                torch, ops, f"fused SA {label} {dtname}",
+                lambda: ops.fused_sa(radius, K, x, cents, *w), (B, S, C3),
+                dt))
+            record("fused_sa_idx", f"{label} {dtname}", sa_check(
+                torch, ops, f"fused SA idx {label} {dtname}",
+                lambda: ops.fused_sa_idx(K, idx, *w), (B, S, C3), dt))
 
     # --- gather backward: the train path's SA1 and SA2 shapes at B=24 with
     # the ball query's own indices, in f32 and bf16, and random indices
@@ -1489,7 +1559,7 @@ def main():
     print(f"kernels built in {build_s:.1f} s", flush=True)
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     # strict fp32: the plain twins and the model's fp32 path use no TF32

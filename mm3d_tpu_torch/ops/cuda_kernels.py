@@ -30,7 +30,7 @@ form of the gather-backward kernel. ``geometry.three_nn`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,8 +47,8 @@ _SIGNATURES = {
     "mm3d_fps": ("fps", [_P, _P, _P, _I, _I, _I, _P]),
     "mm3d_fps_max_points": ("fps", []),
     "mm3d_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 10 + [_F, _P]),
-    "mm3d_fused_sa_idx": ("fused_sa", [_I] + [_P] * 8 + [_I] * 10 + [_P]),
+    "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 13 + [_F, _P]),
+    "mm3d_fused_sa_idx": ("fused_sa", [_I] + [_P] * 8 + [_I] * 12 + [_P]),
     "mm3d_gather_bwd": ("gather_bwd", [_I, _I] + [_P] * 7 + [_I] * 6
                         + [_P]),
     "mm3d_gather_bwd_max_rows": ("gather_bwd", []),
@@ -194,20 +194,117 @@ def fused_sa_torch(radius: float, nsample: int, xyz: torch.Tensor,
     return fused_sa_idx_torch(nsample, idx, pre, cbias, w1, b1, w2, b2)
 
 
-def _round16(c: int) -> int:
-    return (c + 15) // 16 * 16
+# Shared memory a block can use on the H100 (sm_90): 227 KB.
+SMEM_LIMIT = 232448
 
 
-def _padded(t: torch.Tensor, shape, dt) -> torch.Tensor:
-    out = torch.zeros(shape, dtype=dt, device=t.device)
-    out[tuple(slice(0, n) for n in t.shape)] = t
-    return out
+class SaPlan(NamedTuple):
+    """How a fused SA launch cuts its work (``sa_plan``)."""
+    rows: int       # gathered rows a tile: a multiple of 64 (loop: St*K)
+    St: int         # centroids a tile
+    KR: int         # rows a centroid: K rounded up to 16 (loop: K)
+    resident: bool  # weights copied once a block (else streamed)
+    xyz_smem: bool  # the cloud's points in shared memory (ball query)
+    producers: int  # producer warpgroups, each with its own A stage between
+                    # gather and products; 0: the loop kernel
+    smem: int       # shared-memory bytes a block
 
 
-def _sa_tail(name: str, B: int, N: int, S: int, pre, cbias, w1, b1, w2, b2):
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# output columns a product chunk of the bf16 kernel (its wgmma N): layer 1
+# and streamed panels; layer 2 takes SA_CHUNK2 with two producers
+SA_CHUNK, SA_CHUNK2 = 64, 128
+
+
+def _ws_smem(C1: int, C2: int, C3: int, rows: int, resident: bool,
+             xyz_points: int = 0, producers: int = 1) -> int:
+    """Shared-memory bytes of the bf16 kernel (``WsLayout`` in
+    ``csrc/fused_sa.cu``): weights (resident w1 and w2, or two streamed
+    panels of SA_CHUNK columns), an A stage a producer and H, all in
+    128-byte swizzle atoms
+    (K padded to 64, 1024-byte aligned), f32 biases, two tiles' indices and
+    the cloud's ``xyz_points`` points for each producer, two chunks' f32
+    slab maxima, mbarriers, and 1024 bytes of slack to align the base."""
+    NC, NC2 = SA_CHUNK, SA_CHUNK2 if producers == 2 else SA_CHUNK
+    C1q, K2q, N1p, N2p = _up(C1, 64), _up(C2, 64), _up(C2, NC), _up(C3, NC2)
+    # H holds at most 128 rows (a larger tile is walked in blocks of 128),
+    # and such a tile keeps every layer-2 chunk's slab maxima
+    hrows = min(rows, 128)
+    pbufs = max(2, N2p // NC2) if rows > 128 else 2
+
+    def a(n, m=128):
+        return _up(n, m)
+
+    w = (a(C1q * N1p * 2, 1024) + a(K2q * N2p * 2, 1024) if resident
+         else 2 * a(max(C1q, K2q) * NC * 2, 1024))
+    return (w + producers * a(rows * C1q * 2, 1024) + a(hrows * N1p * 2, 1024)
+            + a(N1p * 4) + a(N2p * 4) + a(2 * producers * rows * 4)
+            + a(pbufs * (rows // 16) * NC2 * 4)
+            + producers * a(xyz_points * 12) + 128 + 1024)
+
+
+def _loop_smem(St: int, K: int, C1: int, C2: int, esize: int) -> int:
+    """Shared-memory bytes of the loop kernel (``Layout``): idx | A | H | an
+    f32 staging tile of 64 columns."""
+    R = St * K
+    Rp = _up(R, 16)
+    skew = 16 // esize
+    return (_up(R * 4, 128) + Rp * (_up(C1, 16) + skew) * esize
+            + Rp * (_up(C2, 16) + skew) * esize + Rp * 68 * 4)
+
+
+def sa_plan(C1: int, C2: int, C3: int, K: int, S: int, dtype: torch.dtype,
+            N: int = 0) -> SaPlan:
+    """The tile plan of a fused SA launch, or a ValueError naming the
+    shared-memory limit where none fits.
+
+    bf16, the warp-specialised wgmma kernel: the first that fits of: weights
+    resident, then streamed; 128 rows a tile (two consumer warpgroups), then
+    64 (K > 128: K rounded up to 128 rows, one centroid, walked in blocks of
+    128); with resident weights, producer warpgroups that take turns with an
+    A stage each (three for the ball-query form, whose selection sets its
+    pace; two, not past 128 rows), then one; the ball-query form's points (N > 0 a cloud) in shared memory, then
+    not. A tile holds St = rows // KR centroids of KR = K rounded up to 16
+    rows. Where none fits (a C2 of 512 and more; K past 128 at wide
+    layers), and always for f32: the loop kernel (producers 0), the first
+    design's layout, St = 128 // K centroids a block (at least 1, at most
+    S)."""
+    if dtype == torch.bfloat16:
+        KR = _up(K, 16)
+        row_options = (128, 64) if KR <= 128 else (_up(KR, 128),)
+        for resident in (True, False):
+            for rows in row_options:
+                for pw in (3, 2, 1):
+                    for xyz in (True, False):
+                        if (rows < KR or (pw > 1 and not resident)
+                                or (pw == 3 and N == 0) or (xyz and N == 0)
+                                or (pw == 2 and rows > 128)):
+                            continue
+                        smem = _ws_smem(C1, C2, C3, rows, resident,
+                                        N if xyz else 0, pw)
+                        if smem <= SMEM_LIMIT:
+                            return SaPlan(rows, rows // KR, KR, resident,
+                                          xyz, pw, smem)
+    St = max(1, min(S, 128 // K)) if K <= 128 else 1
+    smem = _loop_smem(St, K, C1, C2, dtype.itemsize)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"fused SA: no {dtype} tile plan for widths ({C1},{C2},{C3}) and "
+            f"K={K} fits the {SMEM_LIMIT} bytes of shared memory a block can "
+            f"use (the loop kernel needs {smem})")
+    return SaPlan(St * K, St, K, False, False, 0, smem)
+
+
+def _sa_tail(name: str, B: int, N: int, S: int, K: int, pre, cbias, w1, b1,
+             w2, b2, ball: bool):
     """The checks and operands the two fused SA forms share: pre [B,N,C1]
-    bf16 or f32, cbias [B,S,C1], the folded layers; weights cast to pre's
-    dtype and zero padded to multiples of 16 -> (dims, operands)."""
+    bf16 or f32, cbias [B,S,C1], the folded layers, cast to pre's dtype
+    (unpadded: the kernel pads them in shared memory) -> (dims and plan,
+    operands); ``ball``: the ball-query form, whose plan also says whether
+    the points sit in shared memory."""
     dev, dt = pre.device, pre.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name} takes bf16 or f32 features, got {dt}")
@@ -220,19 +317,13 @@ def _sa_tail(name: str, B: int, N: int, S: int, pre, cbias, w1, b1, w2, b2):
                  ("b2", b2)):
         if t.device != dev:
             raise ValueError(f"{n} is on {t.device}, expected {dev}")
-    C1p, C2p, C3p = _round16(C1), _round16(C2), _round16(C3)
-    dims = (C1, C3, C1p, C2p, C3p)
-    operands = (pre.contiguous(), cbias.to(dt).contiguous(),
-                _padded(w1.to(dt), (C1p, C2p), dt),
-                _padded(b1.to(dt), (C2p,), dt),
-                _padded(w2.to(dt), (C2p, C3p), dt),
-                _padded(b2.to(dt), (C3p,), dt))
+    plan = sa_plan(C1, C2, C3, K, S, dt, N if ball else 0)
+    dims = ((C1, C2, C3, plan.St, plan.rows, int(plan.resident))
+            + ((int(plan.xyz_smem),) if ball else ())
+            + (plan.producers, plan.smem))
+    operands = tuple(t.to(dt).contiguous()
+                     for t in (pre, cbias, w1, b1, w2, b2))
     return dims, operands
-
-
-def _centroids_per_block(nsample: int, S: int) -> int:
-    # ~128 gathered rows per block: enough 16-row tiles for 8 warps
-    return max(1, min(S, 128 // nsample)) if nsample <= 128 else 1
 
 
 def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
@@ -257,15 +348,14 @@ def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
     new_xyz = _f32_points("new_xyz", new_xyz, dev)
     B, N, _ = xyz.shape
     S = new_xyz.shape[1]
-    dims, operands = _sa_tail("fused_sa", B, N, S, pre, cbias, w1, b1, w2,
-                              b2)
-    out = torch.empty((B, S, dims[1]), dtype=pre.dtype, device=dev)
+    dims, operands = _sa_tail("fused_sa", B, N, S, nsample, pre, cbias, w1,
+                              b1, w2, b2, ball=True)
+    out = torch.empty((B, S, dims[2]), dtype=pre.dtype, device=dev)
     if out.numel() == 0:
         return out
     _launch("mm3d_fused_sa", int(pre.dtype == torch.bfloat16), _ptr(xyz),
             _ptr(new_xyz), *map(_ptr, operands), _ptr(out), B, N, S,
-            nsample, *dims, _centroids_per_block(nsample, S), _r2(radius),
-            _stream(pre))
+            nsample, *dims, _r2(radius), _stream(pre))
     fused_sa.launches += 1
     return out
 
@@ -299,15 +389,15 @@ def fused_sa_idx(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
                          f"{nsample}")
     B, S, _ = idx.shape
     N = pre.shape[1]
-    dims, operands = _sa_tail("fused_sa_idx", B, N, S, pre, cbias, w1, b1,
-                              w2, b2)
-    out = torch.empty((B, S, dims[1]), dtype=pre.dtype, device=dev)
+    dims, operands = _sa_tail("fused_sa_idx", B, N, S, nsample, pre, cbias,
+                              w1, b1, w2, b2, ball=False)
+    out = torch.empty((B, S, dims[2]), dtype=pre.dtype, device=dev)
     if out.numel() == 0:
         return out
     idx = idx.contiguous()
     _launch("mm3d_fused_sa_idx", int(pre.dtype == torch.bfloat16), _ptr(idx),
             *map(_ptr, operands), _ptr(out), B, N, S, nsample, *dims,
-            _centroids_per_block(nsample, S), _stream(pre))
+            _stream(pre))
     fused_sa_idx.launches += 1
     return out
 

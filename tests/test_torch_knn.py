@@ -79,10 +79,15 @@ def test_knn_point_bit_exact(case, K):
 
 
 def _idx_case(case):
-    """tests/test_fused_sa.py:202-228's cases -> (K, dtype, inputs, idx)."""
+    """tests/test_fused_sa.py:202-228's cases, and the wide widths (config
+    3's sa2, PointNet2SemSegMSG's sa4) in both dtypes -> (K, dtype, inputs,
+    idx)."""
     if case == "bf16":
         args = _sa_inputs(32, 2, 128, 32, 24, 24, 32)
         K, dt = 16, "bfloat16"
+    elif len(case) == 6:
+        B, N, S, K, widths, dt = case
+        args = _sa_inputs(4, B, N, S, *widths)
     else:
         (B, N, S, K), dt = case, "float32"
         args = _sa_inputs(31, B, N, S, 24, 16, 40)
@@ -96,7 +101,9 @@ def _idx_case(case):
     (1, 1024, 32, 32),  # SA1-like shape
     (2, 160, 40, 48),   # K not a power of two
     "bf16",
-])
+] + [(1, 256, 8, K, widths, dt) for K, widths in (
+    (128, (128, 196, 256)), (32, (256, 384, 512)))
+    for dt in ("float32", "bfloat16")])
 def test_fused_sa_idx_torch_matches_pallas(case):
     """The plain twin and the dispatching wrapper against
     fused_sa_idx_pallas (interpret), on the same kNN indices: f32 within
@@ -121,9 +128,9 @@ def test_fused_sa_idx_torch_matches_pallas(case):
 
 
 def test_fused_sa_idx_kernel_path(monkeypatch):
-    """The wrapper's kernel path on the CPU: one launch per call, padded
-    operands whose tail equals the twin (repeated indices in a row and
-    K=48, not a power of two), and the contract's refusals."""
+    """The wrapper's kernel path on the CPU: one launch per call, the
+    unpadded operands give the twin (repeated indices in a row and K=48,
+    not a power of two), and the contract's refusals."""
     _, _, args, idx = _idx_case((2, 160, 40, 48))
     idx = np.array(idx)
     idx[:, 3] = idx[:, 3, :1]  # a row of one repeated neighbour

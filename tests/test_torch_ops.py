@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fused_sa import fake_kernels  # noqa: F401 (shared helper)
 from mm3d_tpu.ops import geometry as G
 from mm3d_tpu.ops import pallas_kernels as pk
 from mm3d_tpu_torch import ops as tops
@@ -25,49 +26,6 @@ from mm3d_tpu_torch.ops import _build, dispatch
 def _cloud(seed, B, N, scale=1.0):
     return (np.random.RandomState(seed).randn(B, N, 3) * scale).astype(
         np.float32)
-
-
-def fake_kernels(monkeypatch):
-    """The kernel path of the wrappers, on the CPU: ``dispatch.resolve``
-    answers 'cuda', and each launch runs the kernel's plain twin into the
-    outputs the wrapper allocated (``_ptr`` hands the tensors through). The
-    wrappers' checks, allocations and launch counts run as on the card."""
-    from mm3d_tpu_torch.ops import cuda_kernels as ck
-    monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
-    monkeypatch.setattr(ck, "_ptr", lambda t: t)
-    monkeypatch.setattr(ck, "_stream", lambda t: None)
-    monkeypatch.setattr(ck, "_fn", lambda symbol: (lambda: 1 << 20))
-
-    def launch(symbol, *a):
-        if symbol == "mm3d_fps":
-            a[2].copy_(tops.fps_torch(a[0], a[5], a[1]))
-        elif symbol == "mm3d_ball_query":
-            a[2].copy_(tops.ball_query_torch(np.sqrt(a[7]), a[6], a[0], a[1]))
-        elif symbol in ("mm3d_fused_sa", "mm3d_fused_sa_idx"):
-            # the tail over the unpadded operands
-            given = symbol == "mm3d_fused_sa_idx"
-            pre, cbias, w1, b1, w2, b2, out = a[3 - given:10 - given]
-            K, C1, C3 = a[13 - given:16 - given]
-            idx = (a[1] if given else
-                   tops.ball_query_torch(np.sqrt(a[-2]), K, a[1], a[2]))
-            out.copy_(tops.fused_sa_idx_torch(K, idx, pre, cbias, w1[:C1], b1,
-                                              w2[:, :C3], b2[:C3]))
-        elif symbol == "mm3d_three_nn":
-            d, i = tops.three_nn_torch(a[0], a[1])
-            a[2].copy_(d)
-            a[3].copy_(i)
-        elif symbol == "mm3d_three_interp":
-            a[5].copy_(tops.three_interpolate_torch(a[2], a[3], a[4]))
-        elif symbol == "mm3d_gather_bwd":
-            a[5].copy_(tops.gather_backward_torch(a[2], a[3], a[12], a[4]))
-        elif symbol == "mm3d_bilinear":
-            a[4].copy_(tops.bilinear_sample_torch(a[2], a[3]))
-        else:
-            raise NotImplementedError(symbol)
-
-    monkeypatch.setattr(ck, "_launch", launch)
-    ck.reset_launches()
-    return ck
 
 
 # ------------------------------------------------------------------ FPS
@@ -180,13 +138,19 @@ def _sa_inputs(seed, B, N, S, C1, C2, C3):
             r.randn(C3).astype(np.float32))
 
 
-@pytest.mark.parametrize("B,N,S,K,radius", [
-    (2, 96, 24, 16, 0.4),
-    (1, 128, 8, 8, 0.15),
-    (2, 160, 40, 48, 1.5),
-])
-def test_fused_sa_torch_matches_pallas_fp32(B, N, S, K, radius):
-    args = _sa_inputs(0, B, N, S, 24, 16, 40)
+# the widths of config 3's sa2 and of PointNet2SemSegMSG's sa4, the first
+# not a multiple of 16, the second too wide for resident weights on the card
+WIDE_SA = [(1, 256, 8, 128, 1.5, (128, 196, 256)),
+           (1, 256, 8, 32, 0.8, (256, 384, 512))]
+
+
+@pytest.mark.parametrize("B,N,S,K,radius,widths", [
+    pytest.param(2, 96, 24, 16, 0.4, (24, 16, 40), id="2-96-24-16-0.4"),
+    pytest.param(1, 128, 8, 8, 0.15, (24, 16, 40), id="1-128-8-8-0.15"),
+    pytest.param(2, 160, 40, 48, 1.5, (24, 16, 40), id="2-160-40-48-1.5"),
+] + [pytest.param(*c, id=f"{c[-1]}-K{c[3]}") for c in WIDE_SA])
+def test_fused_sa_torch_matches_pallas_fp32(B, N, S, K, radius, widths):
+    args = _sa_inputs(0, B, N, S, *widths)
     want = np.asarray(pk.fused_sa_pallas(radius, K,
                                          *map(jnp.asarray, args),
                                          interpret=True))
@@ -221,6 +185,23 @@ def test_fused_sa_torch_bf16_close():
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     # the bound tests/test_fused_sa.py:75 holds the bf16 Pallas kernel to
+    assert np.max(np.abs(got - want) / (np.abs(want) + 1)) < 0.05
+
+
+@pytest.mark.parametrize("B,N,S,K,radius,widths", WIDE_SA)
+def test_fused_sa_torch_matches_pallas_bf16_wide(B, N, S, K, radius, widths):
+    """The bf16 twin against the bf16 Pallas kernel at the wide widths,
+    within the bound of test_fused_sa_torch_bf16_close."""
+    args = _sa_inputs(4, B, N, S, *widths)
+    want = np.asarray(pk.fused_sa_pallas(
+        radius, K, *[jnp.asarray(a) if i < 2 else
+                     jnp.asarray(a).astype(jnp.bfloat16)
+                     for i, a in enumerate(args)], interpret=True), np.float32)
+    got = tops.fused_sa_torch(radius, K, *[
+        torch.from_numpy(a) if i < 2 else torch.from_numpy(a).to(
+            torch.bfloat16) for i, a in enumerate(args)])
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, widths[-1])
+    got = got.float().numpy()
     assert np.max(np.abs(got - want) / (np.abs(want) + 1)) < 0.05
 
 
