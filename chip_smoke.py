@@ -12,7 +12,13 @@ that goes wrong:
    kernels of mm3d_tpu_torch/csrc from source, printing the build seconds;
 2. holds each kernel against its plain PyTorch twin (``use_impl("torch")``)
    on the card at the shapes of the serving and training paths: FPS and
-   ball query bit-exact, the fused SA tail (SA1, SA2 and zero-hit
+   ball query bit-exact (timed at SA1, SA2 and fusion_sem_seg's shapes;
+   FPS also at N one below and one above each of its launcher's
+   boundaries, at 4,096 and 16,384 points and with duplicated points tied
+   across warps; the ball query with the K-th hit at the edges of its
+   rounds, K = 128, every point a hit, d2 == r2 exactly, a ragged N, a
+   cloud too large for shared memory and rows too long for it), the fused
+   SA tail (SA1, SA2 and zero-hit
    centroids), the given-index fused SA tail (SA1 and SA2 over the indices
    of knn_point, plus a row of repeated indices at K=48), both forms at the
    other widths the JAX models route to the fused tail (config 3's
@@ -215,7 +221,13 @@ def ball_query_visits(torch, geometry, radius, K, xyz, new_xyz):
                            torch.full_like(kth, N)).sum().item())
 
 
-BQ_FLOPS_PER_POINT = 13  # two 3-term dots, 2*cross, sub, add, compare
+# the ball query's least work: |p|^2 once a point (a 3-term dot), then a
+# visit's 3-term dot c.p, 2*cross, sub, add |p|^2 and compare
+BQ_FLOPS_PER_POINT, BQ_FLOPS_PER_VISIT = 5, 9
+
+
+def ball_query_flops(B, N, visits):
+    return BQ_FLOPS_PER_POINT * B * N + BQ_FLOPS_PER_VISIT * visits
 
 
 def bound(nbytes, flops_by_type):
@@ -383,16 +395,49 @@ def kernel_checks(torch, ops, geometry, dev):
         print(f"kernel {kernel} {label}: " + ", ".join(
             f"{k}={v}" for k, v in entry.items()), flush=True)
 
-    # --- FPS: SA1 and SA2 shapes, a ragged N with per-cloud starts,
-    # npoint > N
+    # --- FPS: SA1, SA2 and fusion_sem_seg's first FPS (B=16, 2048 -> 256)
+    # timed; a ragged N with per-cloud starts, npoint > N; N one below and
+    # one above each of the launcher's boundaries (1, 2, 4 and 8 points a
+    # thread up to 128 threads, 8 up to 256, then 16, then the coordinates
+    # in shared memory past 4,096 points) with per-cloud starts, N = 4,096
+    # and 16,384 (the most it takes) past one chunk of 2,048 indices;
+    # duplicated points whose equal distances fall in different lanes and
+    # warps
+    from mm3d_tpu_torch.data.synthetic import semseg_request
+    seg = torch.from_numpy(semseg_request(SEG_BATCH, SEG_NPOINT, IMAGE_HW,
+                                          seed=5)[0][..., :3].copy()).to(dev)
+    with ops.use_impl("torch"):
+        l1 = geometry.index_points(seg, geometry.fps_torch(seg, 256))
+        l2 = geometry.index_points(l1, geometry.fps_torch(l1, 64))
     ragged = torch.from_numpy(unit_sphere_clouds(rng, 16, 1000)).to(dev)
     starts = torch.from_numpy(rng.randint(0, 1000, 16).astype(np.int32))
     small = torch.from_numpy(unit_sphere_clouds(rng, 4, 128)).to(dev)
-    for label, x, npoint, start, timed in (
-            ("SA1 N=1024 npoint=512", xyz1, 512, 0, True),
-            ("SA2 N=512 npoint=128", c1, 128, 0, True),
-            ("ragged N=1000 per-cloud start", ragged, 256, starts, False),
-            ("N=128 npoint=512", small, 512, 0, False)):
+    gs = np.random.RandomState(9)
+
+    def cloud(B, N):
+        return torch.from_numpy(unit_sphere_clouds(gs, B, N)).to(dev)
+
+    def tiled(B, unique, N):
+        return cloud(B, unique).repeat(1, -(-N // unique), 1)[:, :N].contiguous()
+
+    fps_cases = [("SA1 N=1024 npoint=512", xyz1, 512, 0, True),
+                 ("SA2 N=512 npoint=128", c1, 128, 0, True),
+                 ("semseg B=16 N=2048 npoint=256", seg, 256, 0, True),
+                 ("ragged N=1000 per-cloud start", ragged, 256, starts,
+                  False),
+                 ("N=128 npoint=512", small, 512, 0, False)]
+    for N in (127, 129, 255, 257, 511, 513, 1023, 1025, 2047, 2049, 4095,
+              4097, 16383):
+        fps_cases.append((f"N={N} per-cloud start", cloud(4, N), 200,
+                          torch.from_numpy(gs.randint(0, N, 4).astype(
+                              np.int32)), False))
+    fps_cases += [
+        ("N=4096 npoint=3000", cloud(2, 4096), 3000, 17, False),
+        ("N=16384 npoint=2500", cloud(2, 16384), 2500,
+         torch.tensor([0, 16383], dtype=torch.int32), False),
+        ("48 points tiled to 1024", tiled(4, 48, 1024), 300, 5, False),
+        ("40 points tiled to 6000", tiled(2, 40, 6000), 100, 0, False)]
+    for label, x, npoint, start, timed in fps_cases:
         got = ops.farthest_point_sample(x, npoint, start)
         with ops.use_impl("torch"):
             want = ops.farthest_point_sample(x, npoint, start)
@@ -412,15 +457,48 @@ def kernel_checks(torch, ops, geometry, dev):
                 {"float32": 9 * B * (npoint - 1) * N}))
         record("fps", label, entry)
 
-    # --- ball query: SA1, SA2, zero-hit centroids, ragged N
+    # --- ball query: SA1, SA2 and fusion_sem_seg's SA1 and SA2 (B=16)
+    # timed; zero-hit centroids, ragged N (not a multiple of the 256 points
+    # a round); the 32nd hit at index 31, 32, 127, 128, 255 and 256 (the
+    # edges of a ballot's 32 points, of the fused kernel's rounds of 4
+    # points a lane and of the standalone kernel's of 8); K = 128; every
+    # point a hit (the walk ends in its first round); points at exactly
+    # d2 == r2 (grid coordinates, exact arithmetic); N = 16,384, whose
+    # cloud does not fit in shared memory; K = 1,100, whose rows do not
     far = c1.clone()
     far[:, :7] = 100.0
-    for label, radius, K, x, cents, timed in (
-            ("SA1 S=512 N=1024 K=32 r=0.2", 0.2, 32, xyz1, c1, True),
-            ("SA2 S=128 N=512 K=64 r=0.4", 0.4, 64, c1, c2, True),
-            ("zero-hit centroids", 0.2, 32, xyz1, far, False),
-            ("ragged N=1000", 0.3, 48, ragged, ragged[:, :200].contiguous(),
-             False)):
+    bq_cases = [
+        ("SA1 S=512 N=1024 K=32 r=0.2", 0.2, 32, xyz1, c1, True),
+        ("SA2 S=128 N=512 K=64 r=0.4", 0.4, 64, c1, c2, True),
+        ("semseg SA1 B=16 S=256 N=2048 K=32 r=0.2", 0.2, 32, seg, l1, True),
+        ("semseg SA2 B=16 S=64 N=256 K=64 r=0.4", 0.4, 64, l1, l2, True),
+        ("zero-hit centroids", 0.2, 32, xyz1, far, False),
+        ("ragged N=1000", 0.3, 48, ragged, ragged[:, :200].contiguous(),
+         False),
+        ("ragged N=133 K=128", 0.8, 128, cloud(4, 133), cloud(4, 40),
+         False)]
+    for h in (31, 32, 127, 128, 255, 256):
+        pts = (3.0 + gs.rand(4, 400, 3)).astype(np.float32)
+        pts[:, h - 31:h + 1] = gs.rand(4, 32, 3) * 0.1
+        pts[:, h + 1:h + 40] = gs.rand(4, 39, 3) * 0.1
+        bq_cases.append((f"32nd hit at {h}", 0.5, 32,
+                         torch.from_numpy(pts).to(dev),
+                         torch.full((4, 5, 3), 0.05, device=dev), False))
+    x = cloud(4, 2048)
+    bq_cases += [
+        ("K=128 N=2048", 0.5, 128, x, x[:, ::16].contiguous(), False),
+        ("every point a hit", 0.5, 32, x * 0.01, x[:, :64] * 0.01, False),
+        ("N=16384", 0.1, 32, cloud(2, 16384), cloud(2, 300), False),
+        ("K=1100 N=2000", 0.9, 1100, x[:, :2000].contiguous(), x[:, :20],
+         False)]
+    grid = torch.from_numpy(gs.randint(-8, 9, (4, 1000, 3)).astype(np.float32)
+                            / 16).to(dev)
+    sphere = torch.tensor([[0.5, 0, 0], [0, -0.5, 0], [0, 0, 0.5],
+                           [0.25, 0.25, 0.25]], device=dev)
+    grid[:, 500:504] = grid[:, :1] + sphere  # d2 == r2 == 0.25 from point 0
+    bq_cases.append(("d2 == r2 on the 1/16 grid", 0.5, 32, grid,
+                     grid[:, :50].contiguous(), False))
+    for label, radius, K, x, cents, timed in bq_cases:
         got = ops.query_ball_point(radius, K, x, cents)
         with ops.use_impl("torch"):
             want = ops.query_ball_point(radius, K, x, cents)
@@ -440,7 +518,7 @@ def kernel_checks(torch, ops, geometry, dev):
             visits = ball_query_visits(torch, geometry, radius, K, x, cents)
             entry.update(bound(
                 (B * N + B * S) * 12 + B * S * K * 4,
-                {"float32": BQ_FLOPS_PER_POINT * visits}))
+                {"float32": ball_query_flops(B, N, visits)}))
         record("ball_query", label, entry)
 
     # --- fused SA tail: SA1 and SA2 shapes, bf16 and fp32, timed; zero-hit
@@ -468,7 +546,7 @@ def kernel_checks(torch, ops, geometry, dev):
                 # MLP products in the features' dtype, selection in f32
                 es = 2 if dt == torch.bfloat16 else 4
                 flops = {"bfloat16": 0,
-                         "float32": BQ_FLOPS_PER_POINT * visits}
+                         "float32": ball_query_flops(B, N, visits)}
                 flops[dtname] += 2 * B * S * K * (C1 * C2 + C2 * C3)
                 entry.update(bound(
                     (B * N + B * S) * 12 + (B * N * C1 + B * S * C1) * es

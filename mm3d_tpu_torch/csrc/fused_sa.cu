@@ -139,6 +139,13 @@ struct SaArgs {
 // place of two m64n64 ones
 constexpr int kNC = 64, kNC2 = 128;
 
+// points a lane a round of the ball-query selection (ball_query.cuh): the
+// warp-specialised kernel's producers walk 4 (no slower than 1 or 2 at SA1
+// and SA2, the two-producer kernels' spill at 8 bytes), the loop kernel 1
+// (4 read 16 % slower at SA2 in f32 there; utils/sample_phases.py --src,
+// PERF.md)
+constexpr int kSelectU = 4, kLoopSelectU = 1;
+
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
@@ -529,7 +536,8 @@ __device__ void produce(const SaArgs& a, unsigned char* smem, int ncw) {
         int* row = idx + s * KR;
         if (sg < a.S) {
           const float* c = a.new_xyz + (static_cast<size_t>(b) * a.S + sg) * 3;
-          mm3d_ball_query_warp(xyz, a.N, c[0], c[1], c[2], a.r2, a.K, row);
+          mm3d_ball_query_warp<kSelectU>(BqCloud3{xyz}, a.N, c[0], c[1],
+                                         c[2], a.r2, a.K, row);
           const int first = row[0];
           for (int k = a.K + lane; k < KR; k += 32) row[k] = first;
         } else {
@@ -992,8 +1000,9 @@ __global__ void __launch_bounds__(kThreads) sa_loop_kernel(SaArgs a) {
       const int sg = s0 + s;
       if (sg < a.S) {
         const float* c = a.new_xyz + (static_cast<size_t>(b) * a.S + sg) * 3;
-        mm3d_ball_query_warp(a.xyz + static_cast<size_t>(b) * a.N * 3, a.N,
-                             c[0], c[1], c[2], a.r2, a.K, idx + s * a.K);
+        mm3d_ball_query_warp<kLoopSelectU>(
+            BqCloud3{a.xyz + static_cast<size_t>(b) * a.N * 3}, a.N, c[0],
+            c[1], c[2], a.r2, a.K, idx + s * a.K);
       } else {
         for (int k = lane; k < a.K; k += 32) idx[s * a.K + k] = 0;
       }

@@ -93,6 +93,39 @@ def build(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+def build_variant(src: str, name: str, defines: Iterable[str] = ()
+                  ) -> ctypes.CDLL:
+    """A library of kernel ``name`` built from ``src`` with the port's nvcc
+    flags and ``defines`` (``-D...``): another copy of a source (a variant,
+    or an earlier commit's, with its headers beside it), or the port's own
+    with a measurement switch. Headers are found beside ``src`` first, then
+    in ``csrc/``; the digest covers both. Kept in ``build/`` beside the
+    port's own builds; the ptxas report goes to ``BUILD_LOGS[path]``."""
+    src = os.path.abspath(src)
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for f in [src] + sorted(glob.glob(os.path.join(os.path.dirname(src),
+                                                    "*.cuh"))) + sorted(
+            glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    path = os.path.join(BUILD_DIR, f"lib{name}-v{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        out = subprocess.run([_nvcc(), *NVCC_FLAGS, *defines,
+                              f"-I{CSRC_DIR}", "-o", tmp, src],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        BUILD_LOGS[path] = out.stdout
+        if out.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{out.stdout}")
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    lib.mm3d_error_string.argtypes = [ctypes.c_int]
+    lib.mm3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

@@ -37,16 +37,8 @@ PHASES = ("entries", "issue_loads", "sort", "sum_warp0", "barrier",
 
 
 def _instrumented() -> ctypes.CDLL:
-    path = _build.lib_path("gather_bwd").replace(".so", "-phases.so")
-    if not os.path.exists(path):
-        os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        out = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-DGB_PHASE_CLOCKS", "-o",
-             path, os.path.join(_build.CSRC_DIR, "gather_bwd.cu")],
-            capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
-    lib = ctypes.CDLL(path)
+    lib = _build.build_variant(os.path.join(_build.CSRC_DIR, "gather_bwd.cu"),
+                               "gather_bwd", ["-DGB_PHASE_CLOCKS"])
     lib.mm3d_gather_bwd.argtypes = ck._SIGNATURES["mm3d_gather_bwd"][1]
     lib.mm3d_gather_bwd.restype = ctypes.c_int
     lib.mm3d_gather_bwd_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]

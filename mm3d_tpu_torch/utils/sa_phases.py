@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -35,29 +34,8 @@ from mm3d_tpu_torch.ops import _build, dispatch, geometry
 SA_SHAPES = (("SA1", 0.2, 32, (64, 64, 128)), ("SA2", 0.4, 64, (128, 128, 256)))
 
 
-def build_variant(src: str, *defines: str) -> ctypes.CDLL:
-    """A fused SA library built from ``src`` with the port's nvcc flags and
-    ``defines`` (``-D...``), kept beside the port's own builds."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(defines).encode()).hexdigest()[:12]
-    path = os.path.join(_build.BUILD_DIR, f"libfused_sa-{digest}.so")
-    if not os.path.exists(path):
-        os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        out = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *defines,
-             f"-I{_build.CSRC_DIR}", "-o", path, src],
-            capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{out.stdout}{out.stderr}")
-    lib = ctypes.CDLL(path)
-    lib.mm3d_error_string.argtypes = [ctypes.c_int]
-    lib.mm3d_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _instrumented(src: str) -> ctypes.CDLL:
-    lib = build_variant(src, "-DSA_PHASE_CLOCKS")
+    lib = _build.build_variant(src, "fused_sa", ["-DSA_PHASE_CLOCKS"])
     lib.mm3d_fused_sa_phase_names.restype = ctypes.c_char_p
     lib.mm3d_fused_sa_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.mm3d_fused_sa_phases.restype = ctypes.c_int

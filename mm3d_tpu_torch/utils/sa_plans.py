@@ -78,8 +78,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     _build.build(["fused_sa"])
     if args.src:
-        _build._LIBS["fused_sa"] = sa_phases.build_variant(
-            os.path.abspath(args.src))
+        _build._LIBS["fused_sa"] = _build.build_variant(args.src,
+                                                         "fused_sa")
     chosen = ck.sa_plan
     rows = []
     try:
