@@ -226,6 +226,15 @@ def ball_query_visits(torch, geometry, radius, K, xyz, new_xyz):
 BQ_FLOPS_PER_POINT, BQ_FLOPS_PER_VISIT = 5, 9
 
 
+# the 3-NN selection's least work a candidate: the distance (the 3-term dot
+# of -2 x1, scaled once a dense point, with x2, then the additions of |x1|^2
+# and |x2|^2: 7, exact wherever the coordinates are in range, as on every
+# path input) and its compare with the running third. The bit-exact
+# contract allows no FMA, and the published f32 rate counts an FMA as two
+# operations, so the issue floor is about twice this bound.
+NN_FLOPS_PER_CANDIDATE = 8
+
+
 def ball_query_flops(B, N, visits):
     return BQ_FLOPS_PER_POINT * B * N + BQ_FLOPS_PER_VISIT * visits
 
@@ -721,6 +730,7 @@ def kernel_checks(torch, ops, geometry, dev):
             torch, ops, label, gg, ridx.to(dev), 100, w))
     semseg_kernel_checks(torch, ops, dev, record)
     semseg_train_kernel_checks(torch, ops, dev, record)
+    nn_edge_checks(torch, ops, dev, record)
     return rows
 
 
@@ -729,6 +739,123 @@ def _rel_err(got, want):
     gf, wf = got.float(), want.float()
     return (float((gf - wf).abs().max()) / max(float(wf.abs().max()), 1e-9),
             float((gf - wf).abs().max()))
+
+
+def nn_edge_cases(torch, dev):
+    """(label, xyz1, xyz2) at the edges of the 3-NN selection's design
+    (csrc/three_nn.cuh): G lanes scan a dense point (cuda_kernels.nn_lanes
+    picks G from B and N), each over its share in steps of kNnUnroll (8)
+    candidates after the candidates that fill its three slots.
+
+    - M one below and one above multiples of G x 8 at each G the launcher
+      picks for three_nn (G = 1 at B=24 N=1024, 2 at N=600, 4 at N=300, 16
+      at B=2), and M = 3, 4, ..., 11 at G = 1 (every remainder of the
+      steady-state steps);
+    - M = 2,048, the most the kernels take, with a ragged N = 2,047, and
+      N = 33 (one ragged tile);
+    - a sparse point duplicated at adjacent indices (different lanes where
+      G > 1) with a dense point on it;
+    - a third and a fourth neighbour at exactly equal distance, at adjacent
+      indices (1/16-grid coordinates: exact arithmetic);
+    - every sparse point the same point: the indices must read 0, 1, 2;
+    - coordinates scaled by 1e-20 and by 6e18, outside the range in which
+      the selection takes its 7-operation distance (three_nn.cuh,
+      mm3d_nn_in_range): the 8-operation path."""
+    from mm3d_tpu_torch.ops import cuda_kernels
+    rng = np.random.RandomState(7)
+    threads = cuda_kernels._fn("mm3d_three_nn_threads")()
+    sms = cuda_kernels._sm_count(dev)
+
+    def cloud(B, N):
+        return torch.from_numpy(unit_sphere_clouds(rng, B, N)).to(dev)
+
+    def label(B, N, M, what=""):
+        G = cuda_kernels.nn_lanes(B, N, threads, sms)
+        return f"B={B} N={N} M={M} lanes={G}{what}"
+
+    out = []
+    for B, N, Ms in ((24, 1024, (3, 4, 5, 6, 7, 8, 9, 10, 11, 255, 257)),
+                     (24, 600, (15, 17, 31, 33)),
+                     (24, 300, (31, 33, 63, 65)),
+                     (2, 33, (63, 65, 127, 129)),
+                     (4, 2047, (2047, 2048))):
+        for M in Ms:
+            out.append((label(B, N, M), cloud(B, N), cloud(B, M)))
+    for B, N, M in ((24, 1024, 256), (24, 300, 64), (2, 33, 64)):
+        x1, x2 = cloud(B, N), cloud(B, M)
+        x2[:, 11] = x2[:, 10]
+        x1[:, 0] = x2[:, 10]
+        out.append((label(B, N, M, ", duplicate at 10 and 11"), x1, x2))
+        # 1/16 grid; dense point 0 at the origin: neighbours 4 (d2 1/16), 9
+        # (1/4), then 13 and 14 both at 9/16; every other point >= 1.5 out
+        far = rng.randint(24, 33, (B, M, 3)) * rng.choice([-1, 1], (B, M, 3))
+        x2 = far.astype(np.float32) / 16
+        x2[:, 4], x2[:, 9] = (0.25, 0, 0), (0, 0.5, 0)
+        x2[:, 13], x2[:, 14] = (0.75, 0, 0), (0, -0.75, 0)
+        x1 = rng.randint(-32, 33, (B, N, 3)).astype(np.float32) / 16
+        x1[:, 0] = 0
+        out.append((label(B, N, M, ", 3rd and 4th equal at 13 and 14"),
+                    torch.from_numpy(x1).to(dev),
+                    torch.from_numpy(x2).to(dev)))
+    for B, N, M in ((24, 1024, 257), (2, 33, 64)):
+        x2 = torch.from_numpy(rng.rand(B, 1, 3).astype(np.float32)).to(
+            dev).expand(B, M, 3).contiguous()
+        out.append((label(B, N, M, ", one point repeated"), cloud(B, N), x2))
+    for scale in (1e-20, 6e18):
+        out.append((label(24, 1024, 256, f", coordinates x {scale:g}"),
+                    cloud(24, 1024) * scale, cloud(24, 256) * scale))
+    return out
+
+
+def nn_edge_checks(torch, ops, dev, record):
+    """three_nn bit-exact (d2 and idx) and the fused FP tail, bf16 and f32,
+    within its bounds (bit_exact recorded) at ``nn_edge_cases``; at every
+    third case the fused tail also with C = 24 (three or six 16-byte moves a
+    row: a thread's steps wrap rows), C = 18 (not a whole number of 16-byte
+    moves in either dtype: the scalar path) and with an operand at an
+    offset that is not 16-byte aligned (the scalar path too). Untimed."""
+    g = np.random.RandomState(8)
+    for i, (label, x1, x2) in enumerate(nn_edge_cases(torch, dev)):
+        d, idx = ops.three_nn(x1, x2)
+        with ops.use_impl("torch"):
+            wd, wi = ops.three_nn(x1, x2)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, wi) and torch.equal(d, wd),
+              f"three_nn {label}: not bit-exact")
+        if "one point repeated" in label:
+            check(bool((idx == torch.arange(3, device=dev, dtype=idx.dtype))
+                       .all()), f"three_nn {label}: idx not 0, 1, 2")
+        if "3rd and 4th" in label:
+            check(idx[:, 0].tolist() == [[4, 9, 13]] * x1.shape[0],
+                  f"three_nn {label}: idx {idx[:, 0].tolist()}")
+        record("three_nn", label, {"bit_exact": True, "max_abs_err": 0.0})
+        B, N, M = x1.shape[0], x1.shape[1], x2.shape[1]
+        for C, offset in ((128, 0), (24, 0), (18, 0),
+                          (128, 1))[:1 if i % 3 else 4]:
+            pre32 = torch.from_numpy(g.randn(B, M, C).astype(np.float32))
+            skip32 = torch.from_numpy(g.randn(B, N, C).astype(np.float32))
+            for dtname, dt in (("bfloat16", torch.bfloat16),
+                               ("float32", torch.float32)):
+                pre, skip = pre32.to(dev, dt), skip32.to(dev, dt)
+                if offset:
+                    # the same values one element into a buffer: contiguous,
+                    # not 16-byte aligned
+                    buf = torch.empty(B * M * C + offset, dtype=dt,
+                                      device=dev)
+                    pre = buf[offset:].view(B, M, C).copy_(pre)
+                got = ops.fused_fp(x1, x2, pre, skip)
+                with ops.use_impl("torch"):
+                    want = ops.fused_fp(x1, x2, pre, skip)
+                torch.cuda.synchronize()
+                rel, err = _rel_err(got, want)
+                what = f"{label} C={C}{' unaligned pre' if offset else ''}"
+                check(got.shape == (B, N, C) and got.dtype == dt,
+                      f"fused FP {what} {dtname}: shape/dtype")
+                check(rel < (2e-2 if dt == torch.bfloat16 else 1e-6),
+                      f"fused FP {what} {dtname}: max|d|/max|ref| {rel}")
+                record("fused_fp", f"{what} {dtname}", {
+                    "dtype": dtname, "max_abs_err": err,
+                    "bit_exact": bool(torch.equal(got, want))})
 
 
 def semseg_kernel_checks(torch, ops, dev, record):
@@ -797,9 +924,11 @@ def semseg_kernel_checks(torch, ops, dev, record):
                 entry.update(bound(
                     (Bx * Nx + Bx * Mx) * 12
                     + (Bx * Mx * C + 2 * Bx * Nx * C) * es,
-                    # 8 f32 operations per distance, 6 per interpolated
-                    # channel (3 products, 2 sums, the skip add)
-                    {"float32": 8 * Bx * Nx * Mx + 6 * Bx * Nx * C}))
+                    # 8 f32 operations a candidate (NN_FLOPS_PER_CANDIDATE),
+                    # 6 per interpolated channel (3 products, 2 sums, the
+                    # skip add)
+                    {"float32": NN_FLOPS_PER_CANDIDATE * Bx * Nx * Mx
+                     + 6 * Bx * Nx * C}))
             record("fused_fp", f"{label} {dtname}", entry)
 
     # bilinear sampling at the projected points of the request (out-of-frame
@@ -930,10 +1059,9 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
             # the library yardstick: all distances, then the 3 smallest
             entry.update(times(torch, lambda: torch.cdist(x1, x2).topk(
                 3, dim=-1, largest=False), 20, "library_"))
-            # 8 f32 operations per distance (two 3-term dots, the doubling,
-            # a subtraction and an addition; the comparisons not counted)
             entry.update(bound((Bx * Nx + Bx * Mx) * 12 + Bx * Nx * 3 * 8,
-                               {"float32": 8 * Bx * Nx * Mx}))
+                               {"float32": NN_FLOPS_PER_CANDIDATE * Bx * Nx
+                                * Mx}))
         record("three_nn", label, entry)
 
     # --- three_interpolate: the forward bit-exact, the backward (d_points)

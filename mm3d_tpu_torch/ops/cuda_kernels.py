@@ -56,11 +56,13 @@ _SIGNATURES = {
     "mm3d_gather_bwd_max_contributions": ("gather_bwd", []),
     "mm3d_gather_bwd_max_buckets": ("gather_bwd", []),
     "mm3d_gather_bwd_tile": ("gather_bwd", []),
-    "mm3d_fused_fp": ("fused_fp", [_I, _I] + [_P] * 5 + [_I] * 4 + [_P]),
+    "mm3d_fused_fp": ("fused_fp", [_I, _I] + [_P] * 5 + [_I] * 6 + [_P]),
     "mm3d_fused_fp_max_sparse": ("fused_fp", []),
+    "mm3d_fused_fp_threads": ("fused_fp", []),
     "mm3d_bilinear": ("bilinear", [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
-    "mm3d_three_nn": ("three_nn", [_P] * 4 + [_I] * 3 + [_P]),
+    "mm3d_three_nn": ("three_nn", [_P] * 4 + [_I] * 4 + [_P]),
     "mm3d_three_nn_max_sparse": ("three_nn", []),
+    "mm3d_three_nn_threads": ("three_nn", []),
     "mm3d_three_interp": ("three_interp", [_I, _I] + [_P] * 4 + [_I] * 4
                           + [_P]),
 }
@@ -89,6 +91,11 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 132)
 
 
 def _f32_points(name: str, t: torch.Tensor, device) -> torch.Tensor:
@@ -506,10 +513,9 @@ def gather_backward(g: torch.Tensor, idx: torch.Tensor, n: int,
         weight = weight.contiguous()
     # multiprocessors: the card's; the H100's 132 where the CPU tests fake
     # the kernel path
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else 132)
     rpb = _gather_rows_per_block(
-        B, n, C, sms, _fn("mm3d_gather_bwd_max_rows_per_block")(),
+        B, n, C, _sm_count(dev),
+        _fn("mm3d_gather_bwd_max_rows_per_block")(),
         _fn("mm3d_gather_bwd_max_buckets")())
     # scratch: per tile and bucket counts, the bucketed list, bucket starts
     tiles = -(-R * k // _fn("mm3d_gather_bwd_tile")())
@@ -559,6 +565,58 @@ def _vec_ok(C: int, *ts: torch.Tensor) -> int:
     return int(C % per == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
+# the 3-NN kernels (csrc/three_nn.cu, csrc/fused_fp.cu): G lanes scan a
+# dense point, G in NN_LANES; a block of `threads` threads takes
+# threads / G dense points of one cloud
+NN_LANES = (1, 2, 4, 8, 16)
+# blocks a multiprocessor the lanes are raised to give the grid
+NN_BLOCKS_PER_SM = 1
+# the fused FP tail's shared memory: most bytes of a block's skip tile, and
+# most bytes in all (sparse cloud, skip tile and the cloud's pre rows) for
+# the pre rows to be staged too (two blocks a multiprocessor)
+FP_SKIP_TILE_BYTES = 64 * 1024
+FP_PRE_SMEM_BYTES = 100 * 1024
+
+
+def nn_lanes(B: int, N: int, threads: int = 128, sms: int = 132) -> int:
+    """Lanes a dense point: the fewest of NN_LANES whose grid has
+    NN_BLOCKS_PER_SM blocks for each of the card's ``sms`` multiprocessors
+    (the most where none has). Fewer lanes give each lane a longer scan and
+    fewer merge rounds (three_nn.cuh)."""
+    for G in NN_LANES:
+        if B * -(-N * G // threads) >= NN_BLOCKS_PER_SM * sms:
+            return G
+    return NN_LANES[-1]
+
+
+class FpPlan(NamedTuple):
+    lanes: int  # lanes a dense point
+    mode: int   # 0 scalar; 1 16-byte moves, skip tile in shared memory;
+    #             2 as 1 with the cloud's pre rows in shared memory too
+    smem: int   # dynamic shared-memory bytes of a block (the launcher
+    #             refuses a count that differs from its layout)
+
+
+def fp_plan(B: int, N: int, M: int, C: int, esize: int, aligned: int,
+            threads: int = 256, sms: int = 132) -> FpPlan:
+    """The fused FP tail's launch: ``nn_lanes``, raised where the block's
+    skip tile (threads / G rows of C channels of ``esize`` bytes) would pass
+    FP_SKIP_TILE_BYTES; the pre rows staged where everything fits in
+    FP_PRE_SMEM_BYTES; the scalar path (no tile) where C is not a whole
+    number of 16-byte moves, a pointer is not 16-byte aligned (``aligned``
+    0) or even the most lanes leave the tile too large."""
+    G = nn_lanes(B, N, threads, sms)
+    if aligned and C * esize % 16 == 0:
+        for lanes in NN_LANES:
+            tile = threads // lanes * C * esize
+            if lanes >= G and tile <= FP_SKIP_TILE_BYTES:
+                smem, mode = M * 16 + tile, 1
+                if smem + M * C * esize <= FP_PRE_SMEM_BYTES:
+                    smem, mode = smem + M * C * esize, 2
+                return FpPlan(lanes, mode, smem)
+    return FpPlan(G, 0, M * 16)
+
+
 def fused_fp(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
              skip: torch.Tensor) -> torch.Tensor:
     """Fused FP tail: relu(three_interpolate(pre) + skip) in one kernel.
@@ -598,9 +656,12 @@ def fused_fp(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
     out = torch.empty((B, N, C), dtype=dt, device=dev)
     if B * N * C == 0:
         return out
-    _launch("mm3d_fused_fp", int(dt == torch.bfloat16),
-            _vec_ok(C, pre, skip, out), _ptr(xyz1), _ptr(xyz2), _ptr(pre),
-            _ptr(skip), _ptr(out), B, N, M, C, _stream(pre))
+    plan = fp_plan(B, N, M, C, pre.element_size(),
+                   _vec_ok(C, pre, skip, out),
+                   _fn("mm3d_fused_fp_threads")(), _sm_count(dev))
+    _launch("mm3d_fused_fp", int(dt == torch.bfloat16), plan.mode,
+            _ptr(xyz1), _ptr(xyz2), _ptr(pre), _ptr(skip), _ptr(out), B, N,
+            M, C, plan.lanes, plan.smem, _stream(pre))
     fused_fp.launches += 1
     return out
 
@@ -793,8 +854,10 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     idx = torch.empty((B, N, 3), dtype=torch.int32, device=xyz1.device)
     if B * N == 0:
         return dist, idx
+    lanes = nn_lanes(B, N, _fn("mm3d_three_nn_threads")(),
+                     _sm_count(xyz1.device))
     _launch("mm3d_three_nn", _ptr(xyz1), _ptr(xyz2), _ptr(dist), _ptr(idx),
-            B, N, M, _stream(xyz1))
+            B, N, M, lanes, _stream(xyz1))
     three_nn.launches += 1
     return dist, idx
 

@@ -1,7 +1,10 @@
-"""Where FPS and the ball query spend their time, by phase, on the card.
+"""Where FPS, the ball query and the 3-NN kernels spend their time, by
+phase, on the card.
 
     python -m mm3d_tpu_torch.utils.sample_phases [--out chiprun_out]
                                                  [--src FILE ...]
+                                                 [--kernel NAME ...]
+                                                 [--plan NAME=VALUE ...]
 
 Runs ``ops.farthest_point_sample`` at SA1 (B=128, 1024 -> 512 points), SA2
 (512 -> 128) and fusion_sem_seg's first FPS (B=16, 2048 -> 256), and
@@ -28,14 +31,31 @@ It also times the ball-query form of the fused SA tail at SA1 and SA2 (bf16,
 the warp-specialised kernel, and f32, the loop kernel; ``sa_phases``'
 draws), whose selection is the same walk.
 
+The 3-NN selection (``csrc/three_nn.cuh``): ``ops.three_nn`` at
+fusion_sem_seg's training shapes (B=24: FP2 256 <- 64, FP1 2048 <- 256
+points, ``chip_smoke.py``'s clouds, ``semseg_request(..., seed=6)``
+subsampled by FPS) and ``ops.fused_fp`` at its serving shapes (B=16: FP2
+N=256 M=64 C=256, FP1 N=2048 M=256 C=128, bf16 and f32, seed 5), from
+builds of ``csrc/three_nn.cu`` and ``csrc/fused_fp.cu`` with the same
+switch: the cycles a warp spends per phase (three_nn: stage, scan, merge,
+store; fused FP: stage, select, weights, stream), the scan steps a warp
+and the share of them in which some lane of the warp inserts. Every library's output is held to the plain twin (``bit_exact``).
+
 ``--src FILE`` (repeatable) times a library built from another copy of
-``fps.cu``, ``ball_query.cu`` or ``fused_sa.cu`` (the file's name says which;
-its headers are found beside it first) beside the checkout's, in the same
-process, in the order checkout, copy, copy, checkout; each copy must keep
-the C interface. So an earlier commit's sources
-(``git archive <commit> mm3d_tpu_torch/csrc | tar -x -C build/old``) or an
-edited copy of a compile-time choice race the checkout's on one card. Writes
-``sample_phases.json`` to ``--out``. Needs a card.
+``fps.cu``, ``ball_query.cu``, ``fused_sa.cu``, ``three_nn.cu`` or
+``fused_fp.cu`` (the file's name says which; its headers are found beside
+it first) beside the checkout's, in the same process, in the order
+checkout, copy, copy, checkout; each copy keeps the C interface, except
+that a three_nn or fused_fp copy from before the launch plan (no
+``*_threads``) is called without its lanes argument. So an earlier
+commit's sources (``git archive <commit> mm3d_tpu_torch/csrc | tar -x -C
+build/old``) or an edited copy of a compile-time choice race the
+checkout's on one card. ``--plan NAME=VALUE`` (repeatable) times the
+checkout's 3-NN kernels once more with a constant of the launch plan in
+``ops.cuda_kernels`` set so (``NN_BLOCKS_PER_SM``,
+``FP_PRE_SMEM_BYTES``, ...). ``--kernel NAME`` (repeatable) runs only the
+cases of those kernels. Writes ``sample_phases.json`` to ``--out``. Needs
+a card.
 """
 
 from __future__ import annotations
@@ -45,20 +65,35 @@ import ctypes
 import json
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from mm3d_tpu_torch import ops
-from mm3d_tpu_torch.ops import _build, dispatch, geometry
+from mm3d_tpu_torch.ops import _build, cuda_kernels, dispatch, geometry
 from mm3d_tpu_torch.utils import sa_phases
 from mm3d_tpu_torch.utils.profiling import device_ms
 
+KERNELS = ("fps", "ball_query", "fused_sa", "three_nn", "fused_fp")
 FPS_PHASES = ("distance", "warp_reduce", "barrier", "exchange",
               "coord_lookup", "index_store")
 FPS_STEPS, FPS_WARPS = 6, 7  # slots of the step and warp counts
 BQ_PHASES = ("stage", "select", "store")
 BQ_ROUNDS, BQ_CENTROIDS, BQ_WARPS = 3, 4, 5
+NN_PHASES = {"three_nn": ("stage", "scan", "merge", "store"),
+             "fused_fp": ("stage", "select", "weights", "stream")}
+NN_STEPS, NN_INSERTS, NN_WARPS = 4, 5, 6
+
+
+def src_kernel(path: str) -> str:
+    """The kernel a ``--src`` copy replaces, by its file name."""
+    name = os.path.basename(path)
+    if not name.endswith(".cu") or name[:-3] not in KERNELS:
+        raise SystemExit(f"--src {path}: not one of "
+                         f"{', '.join(k + '.cu' for k in KERNELS)}")
+    return name[:-3]
 
 
 def _clouds(r, B, N):
@@ -68,19 +103,80 @@ def _clouds(r, B, N):
     return pts
 
 
-def cases(dev):
-    """(kernel, label, call) at the serving shapes."""
+class _NoLanes:
+    """A three_nn or fused_fp library from before the launch plan (no
+    ``lanes`` argument, no ``*_threads``), called through the checkout's
+    wrapper: the launch drops the plan's arguments ahead of the stream
+    (lanes; for fused_fp lanes and shared-memory bytes)."""
+
+    def __init__(self, lib, name):
+        self._lib = lib
+        raw = getattr(lib, f"mm3d_{name}")
+        raw.restype = ctypes.c_int
+        plan_args = 2 if name == "fused_fp" else 1
+
+        def launch(*args):
+            return raw(*args[:-1 - plan_args], args[-1])
+
+        setattr(self, f"mm3d_{name}", launch)
+        setattr(self, f"mm3d_{name}_threads", lambda: 128)
+
+    def __getattr__(self, attr):
+        return getattr(self._lib, attr)
+
+
+def _variant(src, name):
+    lib = _build.build_variant(src, name)
+    if name in NN_PHASES and not hasattr(lib, f"mm3d_{name}_threads"):
+        return _NoLanes(lib, name)
+    return lib
+
+
+def _semseg_levels(dev, B, seed):
+    """A semseg request's xyz and its FPS levels of 256 and 64 points."""
     from mm3d_tpu_torch.data.synthetic import semseg_request
 
+    seg = torch.from_numpy(semseg_request(B, 2048, (64, 64), seed=seed)[0][
+        ..., :3].copy()).to(dev)
+    with dispatch.use_impl("torch"):
+        l1 = geometry.index_points(seg, geometry.fps_torch(seg, 256))
+        l2 = geometry.index_points(l1, geometry.fps_torch(l1, 64))
+    return seg, l1, l2
+
+
+def nn_cases(dev):
+    """(kernel, label, call, plain) of the 3-NN kernels: three_nn at the
+    training shapes, the fused FP tail at the serving shapes."""
+    out = []
+    seg, l1, l2 = _semseg_levels(dev, 24, 6)
+    for label, x1, x2 in (("FP2 B=24 N=256 M=64", l1, l2),
+                          ("FP1 B=24 N=2048 M=256", seg, l1)):
+        out.append(("three_nn", label,
+                    lambda a=(x1, x2): ops.three_nn(*a),
+                    lambda a=(x1, x2): geometry.three_nn_torch(*a)))
+    seg, l1, l2 = _semseg_levels(dev, 16, 5)
+    g = np.random.RandomState(3)
+    for label, x1, x2, C in (("FP2 B=16 N=256 M=64 C=256", l1, l2, 256),
+                             ("FP1 B=16 N=2048 M=256 C=128", seg, l1, 128)):
+        B, N, M = x1.shape[0], x1.shape[1], x2.shape[1]
+        pre, skip = (torch.from_numpy(g.randn(B, n, C).astype(
+            np.float32)).to(dev) for n in (M, N))
+        for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            a = (x1, x2, pre.to(dt), skip.to(dt))
+            out.append(("fused_fp", f"{label} {name}",
+                        lambda a=a: ops.fused_fp(*a),
+                        lambda a=a: cuda_kernels.fused_fp_torch(*a)))
+    return out
+
+
+def cases(dev):
+    """(kernel, label, call) at the serving shapes."""
     xyz = torch.from_numpy(_clouds(np.random.RandomState(0), 128,
                                    1024)).to(dev)
-    seg = torch.from_numpy(semseg_request(16, 2048, (64, 64), seed=5)[0][
-        ..., :3].copy()).to(dev)
+    seg, l1, l2 = _semseg_levels(dev, 16, 5)
     with dispatch.use_impl("torch"):
         c1 = geometry.index_points(xyz, geometry.fps_torch(xyz, 512))
         c2 = geometry.index_points(c1, geometry.fps_torch(c1, 128))
-        l1 = geometry.index_points(seg, geometry.fps_torch(seg, 256))
-        l2 = geometry.index_points(l1, geometry.fps_torch(l1, 64))
     out = []
     for label, x, npoint in (("SA1 B=128 1024->512", xyz, 512),
                              ("SA2 B=128 512->128", c1, 128),
@@ -157,19 +253,46 @@ def _floor(lib, B, threads, npoint, steps=20000):
     return (npoint - 1) * per_step / ghz / 1e6, per_step, ghz
 
 
+@contextmanager
+def _using(name, lib, plan):
+    """``lib`` in place of the checkout's library of kernel ``name``, and
+    the 3-NN launch plan's constants in ``cuda_kernels`` set as ``plan``
+    says (name -> value)."""
+    keep = _build._LIBS[name], {k: getattr(cuda_kernels, k) for k in plan}
+    _build._LIBS[name] = lib
+    for k, v in plan.items():
+        setattr(cuda_kernels, k, v)
+    try:
+        yield
+    finally:
+        _build._LIBS[name] = keep[0]
+        for k, v in keep[1].items():
+            setattr(cuda_kernels, k, v)
+
+
+def _same(call, plain, libs, name):
+    """tag -> whether ``call`` with that library (and plan) returns the
+    plain twin's result bit for bit."""
+    want = plain()
+    want = want if isinstance(want, tuple) else (want,)
+    same = {}
+    for tag, (lib, k) in libs.items():
+        with _using(name, lib, k):
+            got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        same[tag] = all(torch.equal(a, b) for a, b in zip(got, want))
+    return same
+
+
 def _timed(call, libs, name):
-    """Device ms of a call with each library of ``libs`` (tag -> lib) in
-    place of the checkout's, in the order checkout, copies, copies reversed,
-    checkout; each the mean of its two readings."""
+    """Device ms of a call with each library of ``libs`` (tag -> (lib,
+    plan)) in place of the checkout's, in the order checkout, copies,
+    copies reversed, checkout; each the mean of its two readings."""
     order = list(libs) + list(reversed(libs))
     readings = {tag: [] for tag in libs}
-    plain = _build._LIBS[name]
-    try:
-        for tag in order:
-            _build._LIBS[name] = libs[tag]
+    for tag in order:
+        with _using(name, *libs[tag]):
             readings[tag].append(device_ms(call, 20))
-    finally:
-        _build._LIBS[name] = plain
     return {tag: float(np.mean(v)) for tag, v in readings.items()}
 
 
@@ -177,7 +300,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--src", action="append", default=[])
+    ap.add_argument("--kernel", action="append", choices=KERNELS)
+    ap.add_argument("--plan", action="append", default=[],
+                    metavar="NAME=VALUE")
     args = ap.parse_args(argv)
+    srcs = [(src_kernel(src), src) for src in args.src]
     if not torch.cuda.is_available():
         raise SystemExit("sample_phases: no CUDA device; this runs on the "
                          "card")
@@ -187,14 +314,23 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     print(card, flush=True)
     dev = torch.device("cuda")
-    names = ("fps", "ball_query", "fused_sa")
+    names = tuple(args.kernel or KERNELS)
     _build.build(names)
-    libs = {n: {"checkout": _build.load(n)} for n in names}
-    for src in args.src:
-        name = os.path.basename(src)[:-3]
-        if name not in libs:
-            raise SystemExit(f"--src {src}: not one of {names}")
-        libs[name][src] = _build.build_variant(src, name)
+    libs = {n: {"checkout": (_build.load(n), {})} for n in names}
+    for plan in args.plan:
+        const, value = plan.split("=")
+        for n in set(names) & set(NN_PHASES):
+            libs[n][f"checkout, {plan}"] = (libs[n]["checkout"][0],
+                                            {const: int(value)})
+    # the copies and the instrumented builds, one nvcc each, all at once
+    with ThreadPoolExecutor(len(srcs) + len(names)) as pool:
+        copies = [(name, src, pool.submit(_variant, src, name))
+                  for name, src in srcs if name in libs]
+        inst = {n: pool.submit(_instrumented, n) for n in names
+                if n != "fused_sa"}
+    for name, src, lib in copies:
+        libs[name][src] = (lib.result(), {})
+    inst = {n: lib.result() for n, lib in inst.items()}
     ptxas = {}
     for key, log in _build.BUILD_LOGS.items():
         lines = [line.strip() for line in log.splitlines()
@@ -202,11 +338,13 @@ def main(argv=None) -> int:
         ptxas[key] = lines
         for line in lines:
             print(f"ptxas {os.path.basename(key)}: {line}", flush=True)
-    inst = {n: _instrumented(n) for n in ("fps", "ball_query")}
-    fps_threads = _build.load("fps").mm3d_fps_threads
-    fps_threads.argtypes = [ctypes.c_int]
     rows = []
+    if "fps" in names:
+        fps_threads = _build.load("fps").mm3d_fps_threads
+        fps_threads.argtypes = [ctypes.c_int]
     for kernel, label, x, n, call in cases(dev):
+        if kernel not in names:
+            continue
         row = {"kernel": kernel, "case": label,
                "device_ms": _timed(call, libs[kernel], kernel)}
         if kernel == "fps":
@@ -233,6 +371,21 @@ def main(argv=None) -> int:
                 "stage_cycles_per_warp": buf[0] / warps,
                 "store_cycles_per_warp": buf[2] / warps,
                 "centroids": buf[BQ_CENTROIDS], "warps": buf[BQ_WARPS]})
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    for kernel, label, call, plain in nn_cases(dev):
+        if kernel not in names:
+            continue
+        row = {"kernel": kernel, "case": label,
+               "device_ms": _timed(call, libs[kernel], kernel),
+               "bit_exact": _same(call, plain, libs[kernel], kernel)}
+        buf = _phases(inst[kernel], kernel, call)
+        warps = buf[NN_WARPS] or 1
+        row["cycles_per_warp"] = {p: buf[i] / warps for i, p in
+                                  enumerate(NN_PHASES[kernel])}
+        row.update({"scan_steps_per_warp": buf[NN_STEPS] / warps,
+                    "insert_step_share": buf[NN_INSERTS]
+                    / (buf[NN_STEPS] or 1), "warps": buf[NN_WARPS]})
         rows.append(row)
         print(json.dumps(row), flush=True)
     os.makedirs(args.out, exist_ok=True)

@@ -29,7 +29,10 @@ def fake_kernels(monkeypatch):
     monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
     monkeypatch.setattr(ck, "_ptr", lambda t: t)
     monkeypatch.setattr(ck, "_stream", lambda t: None)
-    monkeypatch.setattr(ck, "_fn", lambda symbol: (lambda: 1 << 20))
+    # limits: none; threads a block of the 3-NN kernels: csrc's
+    threads = {"mm3d_three_nn_threads": 128, "mm3d_fused_fp_threads": 256}
+    monkeypatch.setattr(ck, "_fn", lambda symbol: (
+        lambda: threads.get(symbol, 1 << 20)))
 
     def launch(symbol, *a):
         if symbol == "mm3d_fps":
@@ -49,9 +52,17 @@ def fake_kernels(monkeypatch):
             out.copy_(tops.fused_sa_idx_torch(K, idx, pre, cbias, w1, b1, w2,
                                               b2))
         elif symbol == "mm3d_three_nn":
+            assert a[7] in ck.NN_LANES
             d, i = tops.three_nn_torch(a[0], a[1])
             a[2].copy_(d)
             a[3].copy_(i)
+        elif symbol == "mm3d_fused_fp":
+            # the wrapper's plan, within the card's shared memory
+            B, N, M, C, lanes, smem = a[7:13]
+            plan = ck.fp_plan(B, N, M, C, a[4].element_size(),
+                              int(a[1] > 0))
+            assert (lanes, a[1], smem) == plan and smem <= ck.SMEM_LIMIT
+            a[6].copy_(ck.fused_fp_torch(a[2], a[3], a[4], a[5]))
         elif symbol == "mm3d_three_interp":
             a[5].copy_(tops.three_interpolate_torch(a[2], a[3], a[4]))
         elif symbol == "mm3d_gather_bwd":

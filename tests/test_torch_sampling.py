@@ -200,3 +200,66 @@ def test_build_variant_digest_and_command(tmp_path, monkeypatch):
                for p in (a, b, c, d))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build_variant(src, "fps", ["-DFAIL"])
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("three_nn.cu", "three_nn"), ("fused_fp.cu", "fused_fp"),
+    ("fps.cu", "fps"), ("ball_query.cu", "ball_query"),
+    ("fused_sa.cu", "fused_sa"), ("three_interp.cu", None),
+    ("three_nn.cuh", None), ("bilinear.cu", None)])
+def test_sample_phases_src_kernels(name, kernel):
+    """``sample_phases --src`` maps a copy to its kernel by file name, the
+    3-NN kernels included, and refuses any other name before it looks for
+    a card."""
+    from mm3d_tpu_torch.utils import sample_phases
+
+    path = f"build/old/mm3d_tpu_torch/csrc/{name}"
+    if kernel is None:
+        with pytest.raises(SystemExit, match="not one of"):
+            sample_phases.src_kernel(path)
+        with pytest.raises(SystemExit, match="not one of"):
+            sample_phases.main(["--src", path])
+    else:
+        assert sample_phases.src_kernel(path) == kernel
+
+
+def test_sample_phases_calls_old_3nn_copies_without_lanes():
+    """A three_nn / fused_fp library from before the launch plan has no
+    ``*_threads`` and no lanes argument: the race calls it through the
+    checkout's wrapper with the lanes argument dropped."""
+    from types import SimpleNamespace
+
+    from mm3d_tpu_torch.utils import sample_phases
+
+    calls = []
+
+    def raw(*args):
+        calls.append(args)
+        return 0
+
+    lib = SimpleNamespace(mm3d_three_nn=raw, mm3d_three_nn_max_sparse=None)
+    shim = sample_phases._NoLanes(lib, "three_nn")
+    assert shim.mm3d_three_nn_threads() == 128
+    assert shim.mm3d_three_nn("x1", "x2", "d", "i", 2, 40, 8, 4, "st") == 0
+    assert calls == [("x1", "x2", "d", "i", 2, 40, 8, "st")]
+    assert shim.mm3d_three_nn_max_sparse is None  # the rest is the library's
+
+
+def test_sample_phases_calls_old_fused_fp_copies_without_plan():
+    """A fused_fp library from before the launch plan takes neither the
+    lanes nor the shared-memory bytes: the race drops both."""
+    from types import SimpleNamespace
+
+    from mm3d_tpu_torch.utils import sample_phases
+
+    calls = []
+
+    def raw(*args):
+        calls.append(args)
+        return 0
+
+    shim = sample_phases._NoLanes(SimpleNamespace(mm3d_fused_fp=raw),
+                                  "fused_fp")
+    args = (1, 2, "x1", "x2", "pre", "skip", "out", 16, 2048, 256, 128)
+    assert shim.mm3d_fused_fp(*args, 2, 102400, "st") == 0
+    assert calls == [args + ("st",)]
