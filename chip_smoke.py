@@ -188,14 +188,23 @@ def cuda_ms(torch, fn, reps, warmup=2):
     return float(np.median(times))
 
 
-def times(torch, fn, reps, key="", warmup=2):
+def times(torch, fn, reps, key="", warmup=2, kernel=None):
     """``{key}ms``: device time per call of fn(), the kernels and copies it
     puts on the card (torch.profiler), the host's launch time excluded;
     ``{key}call_ms``: CUDA events around one call, which also count the
-    time the card waits for the host to launch it."""
-    from mm3d_tpu_torch.utils.profiling import device_ms
-    return {f"{key}ms": device_ms(fn, reps),
-            f"{key}call_ms": cuda_ms(torch, fn, reps, warmup)}
+    time the card waits for the host to launch it. With ``kernel`` (a part
+    of the kernel's name) also ``{key}kernel_ms``, that kernel's own device
+    time a call, and ``{key}kernels_per_call``, the kernels and copies one
+    call puts on the card."""
+    from mm3d_tpu_torch.utils.profiling import device_kernels
+    per = device_kernels(fn, reps)
+    out = {f"{key}ms": sum(ms for ms, _ in per.values())}
+    if kernel is not None:
+        out[f"{key}kernel_ms"] = sum(ms for name, (ms, _) in per.items()
+                                     if kernel in name)
+        out[f"{key}kernels_per_call"] = sum(n for _, n in per.values())
+    out[f"{key}call_ms"] = cuda_ms(torch, fn, reps, warmup)
+    return out
 
 
 def nvidia_smi():
@@ -858,6 +867,103 @@ def nn_edge_checks(torch, ops, dev, record):
                     "bit_exact": bool(torch.equal(got, want))})
 
 
+def _edge_operand(torch, g, dev, shape, dt, scale=1.0, offset=0):
+    """g.randn(*shape) * scale in dt on the card; with ``offset`` the same
+    values that many elements into a buffer: contiguous, not 16-byte
+    aligned (the kernels' scalar moves)."""
+    t = torch.from_numpy((g.randn(*shape) * scale).astype(np.float32)).to(
+        dev, dt)
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=dt, device=dev)
+    return buf[offset:].view(*shape).copy_(t)
+
+
+# the edges of the byte-bound forwards' plan (csrc/three_interp.cu,
+# csrc/bilinear.cu): (what, B, N, C, feature scale, feature offset). The
+# path shapes take the tile kernel: 2^k lanes a point, kPacks 16-byte packs
+# a lane. C = 20 (bf16: the scalar moves; f32: 5 packs a point, the
+# any-shape kernel), C = 18 (scalar moves in both), C = 48 (bf16: 6 packs,
+# 3 lanes of 2: the any-shape kernel) and C = 512 (a point over more than
+# one warp); an operand one element off 16-byte alignment; N = 1001, not a
+# multiple of any tile; one cloud; features at 2^-120 (products of the
+# small weights below 2^-126, subnormal or 0 in f32) and 2^100
+BYTE_EDGES = (("C=20", 3, 1001, 20, 1.0, 0), ("C=18", 2, 300, 18, 1.0, 0),
+              ("C=48", 2, 300, 48, 1.0, 0), ("C=512", 2, 300, 512, 1.0, 0),
+              ("unaligned C=128", 2, 1001, 128, 1.0, 1),
+              ("N=1001 C=128", 3, 1001, 128, 1.0, 0),
+              ("B=1 C=256", 1, 256, 256, 1.0, 0),
+              ("features x 2^-120", 2, 1001, 128, 2.0 ** -120, 0),
+              ("features x 2^100", 2, 1001, 128, 2.0 ** 100, 0))
+
+
+def interp_edge_checks(torch, ops, dev, record):
+    """three_interpolate bit-exact with its twin at ``BYTE_EDGES`` (M = 64
+    sparse rows), bf16 and f32 points, each with f32 weights and with bf16
+    weights (the kernel rounds them to the points' dtype itself); a fifth
+    of the points carry a weight of 1e-30. Untimed."""
+    g = np.random.RandomState(12)
+    M = 64
+    for what, B, N, C, scale, offset in BYTE_EDGES:
+        idx = torch.from_numpy(g.randint(0, M, (B, N, 3)).astype(
+            np.int32)).to(dev)
+        w = g.rand(B, N, 3) + 1e-3
+        w /= w.sum(-1, keepdims=True)
+        w[g.rand(B, N) < 0.2, 2] = 1e-30
+        w32 = torch.from_numpy(w.astype(np.float32)).to(dev)
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32)):
+            pts = _edge_operand(torch, g, dev, (B, M, C), dt, scale, offset)
+            for wname, wt in (("f32 weights", w32),
+                              ("bf16 weights", w32.to(torch.bfloat16))):
+                got = ops.three_interpolate(pts, idx, wt)
+                with ops.use_impl("torch"):
+                    want = ops.three_interpolate(pts, idx, wt)
+                torch.cuda.synchronize()
+                label = f"edge {what} B={B} N={N} {wname} {dtname}"
+                check(got.shape == (B, N, C) and got.dtype == dt,
+                      f"three_interpolate {label}: shape/dtype")
+                check(torch.equal(got, want),
+                      f"three_interpolate {label}: not bit-exact")
+                record("three_interpolate", label,
+                       {"dtype": dtname, "bit_exact": True,
+                        "max_abs_err": 0.0})
+
+
+def bilinear_edge_checks(torch, ops, dev, record):
+    """The bilinear sampling bit-exact with its twin at ``BYTE_EDGES`` on a
+    [B,16,16,C] map, bf16 and f32, at coordinates random over [-2, 18), a
+    fifth of them whole numbers, and a third of them drawn from whole, negative
+    (-1e-10 among them, where u - floor(u) rounds to du = 1.0), past the right
+    and bottom edges (15.5, 16, 17.25) and far outside (+-1e6). Untimed."""
+    g = np.random.RandomState(13)
+    H = W = 16
+    special = np.array([0.0, 1.0, 7.0, 15.0, -1e-10, -0.5, -1.0, -1.5, -3.0,
+                        15.5, 16.0, 17.25, 1e6, -1e6], np.float32)
+    for what, B, N, C, scale, offset in BYTE_EDGES:
+        uv = g.uniform(-2.0, 18.0, (B, N, 2)).astype(np.float32)
+        flat = uv.reshape(-1)
+        pick = g.rand(flat.size) < 0.3
+        flat[pick] = g.choice(special, int(pick.sum()))
+        whole = g.rand(flat.size) < 0.2
+        flat[whole] = np.floor(flat[whole])
+        uv_t = torch.from_numpy(uv).to(dev)
+        for dtname, dt in (("bfloat16", torch.bfloat16),
+                           ("float32", torch.float32)):
+            fmap = _edge_operand(torch, g, dev, (B, H, W, C), dt, scale,
+                                 offset)
+            got = ops.bilinear_sample(fmap, uv_t)
+            with ops.use_impl("torch"):
+                want = ops.bilinear_sample(fmap, uv_t)
+            torch.cuda.synchronize()
+            label = f"edge {what} B={B} N={N} {dtname}"
+            check(got.shape == (B, N, C) and got.dtype == dt,
+                  f"bilinear {label}: shape/dtype")
+            check(torch.equal(got, want), f"bilinear {label}: not bit-exact")
+            record("bilinear_sample", label,
+                   {"dtype": dtname, "bit_exact": True, "max_abs_err": 0.0})
+
+
 def semseg_kernel_checks(torch, ops, dev, record):
     """The fused FP tail and the bilinear sampling at fusion_sem_seg's
     serving shapes (B=16 blocks of 2048 points), against their plain twins.
@@ -972,7 +1078,10 @@ def semseg_kernel_checks(torch, ops, dev, record):
                 entry["points_touching_the_map"] = float(
                     inside.float().mean())
                 entry.update(times(torch, lambda: ops.bilinear_sample(
-                    fmap, u), 20))
+                    fmap, u), 20, kernel="bilinear"))
+                check(entry["kernels_per_call"] == 1,
+                      f"bilinear {label} {dtname}: "
+                      f"{entry['kernels_per_call']} kernels a call")
                 with ops.use_impl("torch"):
                     entry.update(times(
                         torch, lambda: ops.bilinear_sample(fmap, u), 10,
@@ -996,6 +1105,7 @@ def semseg_kernel_checks(torch, ops, dev, record):
                                    + B * N * C * es,
                                    {"float32": 10 * B * N * C}))
             record("bilinear_sample", f"{label} {dtname}", entry)
+    bilinear_edge_checks(torch, ops, dev, record)
 
 
 def semseg_train_kernel_checks(torch, ops, dev, record):
@@ -1087,14 +1197,20 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
                   f"three_interpolate {label} {dtname}: not bit-exact")
             entry = {"dtype": dtname, "bit_exact": True, "max_abs_err": 0.0,
                      **times(torch, lambda: ops.three_interpolate(
-                         pre, idx, w), 20)}
+                         pre, idx, w), 20, kernel="three_interp")}
+            # the weights reach the kernel in the dtype passed: one kernel
+            # a call, no cast ahead of it
+            check(entry["kernels_per_call"] == 1,
+                  f"three_interpolate {label} {dtname}: "
+                  f"{entry['kernels_per_call']} kernels a call")
             with ops.use_impl("torch"):
                 entry.update(times(torch, lambda: ops.three_interpolate(
                     pre, idx, w), 10, "plain_"))
             # no single PyTorch call computes this function
             entry["library_ms"] = None
             es = pre.element_size()
-            entry.update(bound(B * M * C * es + B * Nx * 3 * (4 + 4)
+            entry.update(bound(B * M * C * es
+                               + B * Nx * 3 * (4 + w.element_size())
                                + B * Nx * C * es,
                                {"float32": 5 * B * Nx * C}))
             record("three_interpolate", f"{label} {dtname}", entry)
@@ -1132,6 +1248,8 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
                 f"three_interpolate d_points {label} {dtname}",
                 lambda: torch.autograd.grad(ok_, pk, co, retain_graph=True),
                 record)
+
+    interp_edge_checks(torch, ops, dev, record)
 
     # --- the sampling's backward: a [24,16,16,128] map at the projected
     # points (out-of-frame and behind-camera points included)
@@ -1321,6 +1439,30 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
                 for k in counts["float32"]}
 
+    # the sampling on the model's own map: ImageEncoder's NHWC map is a view
+    # of a channels-last tensor, so the wrapper's feat.contiguous() copies
+    # nothing and a sampling call puts one kernel on the card
+    from mm3d_tpu_torch.ops import projection
+    from mm3d_tpu_torch.utils.profiling import device_kernels
+    pts, img, K, R, t = reqs[0]
+    sampling = {}
+    for dtname, pred in preds.items():
+        m = pred.model
+        with torch.no_grad():
+            fmap, _ = m.image_trunk(img.to(m.dtype or img.dtype))
+            uv = (projection.project_points(pts[..., :3], K, R, t)[0]
+                  / float(m.image_stride))
+        per = device_kernels(lambda: ops.bilinear_sample(fmap, uv), 10)
+        sampling[dtname] = {"map_contiguous": fmap.is_contiguous(),
+                            "kernels_per_call": sum(
+                                n for _, n in per.values()),
+                            "kernels": sorted(per)}
+        print(f"semseg {dtname} sampling on the model's map: "
+              f"{sampling[dtname]}", flush=True)
+        check(fmap.is_contiguous() and sampling[dtname][
+            "kernels_per_call"] == 1, f"semseg {dtname}: the sampling of the "
+            f"model's map is not one kernel: {sampling[dtname]}")
+
     with torch.no_grad():
         valid = torch.cat([preds["float32"].model(*r)[1]["proj_valid"]
                            for r in reqs])
@@ -1356,6 +1498,7 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
               f"{rates[dtname]['points_per_s']} points/s at B={B} x N={N}",
               flush=True)
     return {"launches": launches, "launches_by_dtype": counts,
+            "sampling_of_the_model_map": sampling,
             "proj_valid_share": share,
             "fp32_kernels_vs_plain": fp32_delta,
             "bf16_vs_fp32": {"argmax_agreement": agree,

@@ -60,11 +60,13 @@ _SIGNATURES = {
     "mm3d_fused_fp_max_sparse": ("fused_fp", []),
     "mm3d_fused_fp_threads": ("fused_fp", []),
     "mm3d_bilinear": ("bilinear", [_I, _I] + [_P] * 3 + [_I] * 5 + [_P]),
+    "mm3d_bilinear_max_batch": ("bilinear", []),
     "mm3d_three_nn": ("three_nn", [_P] * 4 + [_I] * 4 + [_P]),
     "mm3d_three_nn_max_sparse": ("three_nn", []),
     "mm3d_three_nn_threads": ("three_nn", []),
-    "mm3d_three_interp": ("three_interp", [_I, _I] + [_P] * 4 + [_I] * 4
+    "mm3d_three_interp": ("three_interp", [_I] * 3 + [_P] * 4 + [_I] * 4
                           + [_P]),
+    "mm3d_three_interp_max_batch": ("three_interp", []),
 }
 
 
@@ -106,6 +108,20 @@ def _f32_points(name: str, t: torch.Tensor, device) -> torch.Tensor:
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     return t.contiguous()
+
+
+def _indexable(name: str, B: int, symbol: str, **products: int) -> None:
+    """Refuse a shape the kernel's grid cannot index: more clouds than the
+    grid's y axis takes (``symbol``), or a product of extents (name ->
+    value) that reaches 2^31, the 32-bit offsets inside a cloud."""
+    limit = _fn(symbol)()
+    if B > limit:
+        raise ValueError(f"{name}: batch {B} is more than the kernel's grid "
+                         f"takes ({limit})")
+    for what, n in products.items():
+        if n >= 2 ** 31:
+            raise ValueError(f"{name}: {what} = {n} reaches 2^31, past the "
+                             "kernel's 32-bit offsets")
 
 
 def _r2(radius: float) -> float:
@@ -728,6 +744,10 @@ def _bilinear_forward(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     if uv.dim() != 3 or uv.shape[0] != B or uv.shape[-1] != 2:
         raise ValueError(f"uv must be [{B},N,2], got {tuple(uv.shape)}")
     N = uv.shape[1]
+    _indexable("bilinear_sample", B, "mm3d_bilinear_max_batch",
+               **{"H*W*C": H * W * C, "N*max(C,2)": N * max(C, 2)})
+    # a no-op on the model's path: ImageEncoder's map is an NHWC view of a
+    # channels-last tensor
     feat = feat.contiguous()
     uv = uv.contiguous()
     out = torch.empty((B, N, C), dtype=dt, device=dev)
@@ -870,8 +890,10 @@ three_nn.launches = 0
 def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """The forward of the interpolation: points [B,M,C] bf16 or f32, idx
-    [B,N,3] int32 in [0, M), weight [B,N,3] -> [B,N,C] in points' dtype,
-    ``three_interpolate_torch``'s contract bit for bit. The gradient is
+    [B,N,3] int32 in [0, M), weight [B,N,3] bf16 or f32 -> [B,N,C] in
+    points' dtype, ``three_interpolate_torch``'s contract bit for bit: the
+    kernel reads the weights as they are and rounds them to the points'
+    dtype itself, so a call is one launch. The gradient is
     ``geometry.three_interpolate``'s."""
     if dispatch.resolve(points) == "torch":
         return three_interpolate_torch(points, idx, weight)
@@ -890,20 +912,25 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
                              f"{tuple(t.shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if weight.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"three_interpolate takes bf16 or f32 weights, "
+                        f"got {weight.dtype}")
     if weight.shape != idx.shape:
         raise ValueError(f"weight {tuple(weight.shape)} does not match idx "
                          f"{tuple(idx.shape)}")
     N = idx.shape[1]
+    _indexable("three_interpolate", B, "mm3d_three_interp_max_batch",
+               **{"M*C": M * C, "N*max(C,3)": N * max(C, 3)})
     points = points.contiguous()
     idx = idx.contiguous()
-    # the twin's weights: rounded to the points' dtype, used in f32
-    w = weight.to(dt).to(torch.float32).contiguous()
+    weight = weight.contiguous()
     out = torch.empty((B, N, C), dtype=dt, device=dev)
     if B * N * C == 0:
         return out
     _launch("mm3d_three_interp", int(dt == torch.bfloat16),
-            _vec_ok(C, points, out), _ptr(points), _ptr(idx), _ptr(w),
-            _ptr(out), B, N, M, C, _stream(points))
+            int(weight.dtype == torch.bfloat16), _vec_ok(C, points, out),
+            _ptr(points), _ptr(idx), _ptr(weight), _ptr(out), B, N, M, C,
+            _stream(points))
     three_interpolate.launches += 1
     return out
 

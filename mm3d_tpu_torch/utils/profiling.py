@@ -52,7 +52,7 @@ import math
 import os
 import subprocess
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -266,30 +266,35 @@ def _profile(call: Callable[[], object], reps: int):
     return events, wall_us
 
 
-def device_ms(call: Callable[[], object], reps: int = 10) -> float:
-    """Device time per call: the summed durations of the kernels and copies
-    one call puts on the card (torch.profiler over ``reps`` calls), the
-    host's launch time excluded.
+def device_kernels(call: Callable[[], object], reps: int = 10
+                   ) -> Dict[str, Tuple[float, int]]:
+    """The device work of one call of ``call``, by kernel (or copy) name:
+    (ms a call, launches a call), from torch.profiler over ``reps`` calls,
+    the host's launch time excluded.
 
-    Summed per kernel name as its mean duration times its launches per call
-    (its count over ``reps``, rounded up): every call puts the same work on
-    the card, and the profiler can drop an activity record (seen on the
-    card: one in forty, and a window read 14x low), which then moves
-    neither the mean nor the count per call. With no record lost this is
-    the plain sum over ``reps``. A window in which the profiler recorded
-    no device work at all (seen on the card once in a few hundred windows)
-    is taken again, twice at most; then it raises."""
+    A name's ms is its mean duration times its launches a call (its count
+    over ``reps``, rounded up): every call puts the same work on the card,
+    and the profiler can drop an activity record (seen on the card: one in
+    forty, and a window read 14x low), which then moves neither the mean
+    nor the count a call. With no record lost the sum over names is the
+    plain sum over ``reps``. A window in which the profiler recorded no
+    device work at all (seen on the card once in a few hundred windows) is
+    taken again, twice at most; then it raises."""
     for _ in range(3):
         events, _ = _profile(call, reps)
         if events:
             break
     else:
-        raise RuntimeError("device_ms: the profiler recorded no device work")
+        raise RuntimeError("device_kernels: the profiler recorded no device "
+                           "work")
     by_name: Dict[str, list] = {}
     for e in events:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    return sum(float(np.mean(d)) * math.ceil(len(d) / reps)
-               for d in by_name.values()) / 1e3
+    out = {}
+    for name, d in by_name.items():
+        per_call = math.ceil(len(d) / reps)
+        out[name] = (float(np.mean(d)) * per_call / 1e3, per_call)
+    return out
 
 
 def kernel_table(call: Callable[[], object], reps: int = 3,

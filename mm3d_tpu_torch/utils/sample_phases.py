@@ -41,9 +41,30 @@ switch: the cycles a warp spends per phase (three_nn: stage, scan, merge,
 store; fused FP: stage, select, weights, stream), the scan steps a warp
 and the share of them in which some lane of the warp inserts. Every library's output is held to the plain twin (``bit_exact``).
 
+The two byte-bound forwards, ``csrc/three_interp.cu`` and
+``csrc/bilinear.cu``: ``ops.three_interpolate`` at fusion_sem_seg's
+training shapes (B=24: FP2 [24,64,256] -> 256 points, FP1 [24,256,128] ->
+2048, the 3-NN of ``chip_smoke.py``'s clouds, seed 6; bf16 with bf16
+weights, as the model passes them, and f32) and ``ops.bilinear_sample`` on
+a [B,16,16,128] map at the projected points of a request (B=16, seed 5:
+serving; B=24, seed 6: training; out-of-frame and behind-camera points
+included), bf16 and f32. For each: the device time of the call (every
+kernel and copy it puts on the card), the kernel's own time (the profiler's
+records whose name holds the kernel's), the kernels a call, the byte bound
+(each input read once, the output written once, at 3.35 TB/s) and its share
+of the kernel's time, ``bit_exact``; and, from ``cuobjdump -sass`` of each
+library raced, each kernel function's SASS instructions up to its last
+``EXIT`` (one thread's straight-line path), the instructions after it
+(subroutines it calls, such as the 64-bit division) and its ``CALL``s. A
+three_interp library from before the weights were taken in their own dtype
+(no ``mm3d_three_interp_max_batch``) is called as its wrapper called it:
+the weights rounded to the points' dtype and widened to f32 ahead of the
+launch.
+
 ``--src FILE`` (repeatable) times a library built from another copy of
-``fps.cu``, ``ball_query.cu``, ``fused_sa.cu``, ``three_nn.cu`` or
-``fused_fp.cu`` (the file's name says which; its headers are found beside
+``fps.cu``, ``ball_query.cu``, ``fused_sa.cu``, ``three_nn.cu``,
+``fused_fp.cu``, ``three_interp.cu`` or ``bilinear.cu`` (the file's name
+says which; its headers are found beside
 it first) beside the checkout's, in the same process, in the order
 checkout, copy, copy, checkout; each copy keeps the C interface, except
 that a three_nn or fused_fp copy from before the launch plan (no
@@ -64,6 +85,8 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -74,9 +97,13 @@ import torch
 from mm3d_tpu_torch import ops
 from mm3d_tpu_torch.ops import _build, cuda_kernels, dispatch, geometry
 from mm3d_tpu_torch.utils import sa_phases
-from mm3d_tpu_torch.utils.profiling import device_ms
+from mm3d_tpu_torch.utils.profiling import device_kernels
 
-KERNELS = ("fps", "ball_query", "fused_sa", "three_nn", "fused_fp")
+KERNELS = ("fps", "ball_query", "fused_sa", "three_nn", "fused_fp",
+           "three_interp", "bilinear")
+# the kernels built again with -DSAMPLE_PHASE_CLOCKS
+PHASED = ("fps", "ball_query", "three_nn", "fused_fp")
+PEAK_BYTES_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 FPS_PHASES = ("distance", "warp_reduce", "barrier", "exchange",
               "coord_lookup", "index_store")
 FPS_STEPS, FPS_WARPS = 6, 7  # slots of the step and warp counts
@@ -125,10 +152,25 @@ class _NoLanes:
         return getattr(self._lib, attr)
 
 
+class _NoMaxBatch:
+    """A bilinear library from before the grid put the batch on its y
+    axis (no ``mm3d_bilinear_max_batch``; same launch arguments), called
+    through the checkout's wrapper: it reports the grid's y limit."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.mm3d_bilinear_max_batch = lambda: 65535
+
+    def __getattr__(self, attr):
+        return getattr(self._lib, attr)
+
+
 def _variant(src, name):
     lib = _build.build_variant(src, name)
     if name in NN_PHASES and not hasattr(lib, f"mm3d_{name}_threads"):
         return _NoLanes(lib, name)
+    if name == "bilinear" and not hasattr(lib, "mm3d_bilinear_max_batch"):
+        return _NoMaxBatch(lib)
     return lib
 
 
@@ -166,6 +208,113 @@ def nn_cases(dev):
             out.append(("fused_fp", f"{label} {name}",
                         lambda a=a: ops.fused_fp(*a),
                         lambda a=a: cuda_kernels.fused_fp_torch(*a)))
+    return out
+
+
+def _f32_weight_three_interp(points, idx, weight):
+    """The interpolation as its earlier wrapper launched it, for a three_interp
+    library in place that takes f32 weights only: the weights rounded to
+    the points' dtype and widened to f32 (cast kernels ahead of the
+    launch), then ``mm3d_three_interp(is_bf16, vec, points, idx, w, out, B,
+    N, M, C, stream)``."""
+    fn = _build._LIBS["three_interp"].mm3d_three_interp
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    dt = points.dtype
+    B, M, C = points.shape
+    N = idx.shape[1]
+    w = weight.to(dt).to(torch.float32).contiguous()
+    out = torch.empty((B, N, C), dtype=dt, device=points.device)
+    err = fn(int(dt == torch.bfloat16), cuda_kernels._vec_ok(C, points, out),
+             *(ctypes.c_void_p(t.data_ptr()) for t in (points, idx, w, out)),
+             B, N, M, C, ctypes.c_void_p(
+                 torch.cuda.current_stream().cuda_stream))
+    if err:
+        raise RuntimeError(f"mm3d_three_interp (f32 weights): {err}")
+    return out
+
+
+def _three_interp(points, idx, weight):
+    """``ops.three_interpolate`` with the library in place: the checkout's
+    wrapper, or the earlier one for a library that takes f32 weights
+    only."""
+    if hasattr(_build._LIBS["three_interp"], "mm3d_three_interp_max_batch"):
+        return cuda_kernels.three_interpolate(points, idx, weight)
+    return _f32_weight_three_interp(points, idx, weight)
+
+
+def interp_cases(dev):
+    """(kernel, label, call, plain, bytes) of the byte-bound forwards:
+    three_interpolate at the training shapes, the bilinear sampling at the
+    serving and training shapes (see the module's docstring). ``bytes``:
+    each input read once (the weights at the dtype passed), the output
+    written once."""
+    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.ops import projection
+
+    out = []
+    seg, l1, l2 = _semseg_levels(dev, 24, 6)
+    g = np.random.RandomState(4)
+    for label, x1, x2, C in (("FP2 B=24 N=256 M=64 C=256", l1, l2, 256),
+                             ("FP1 B=24 N=2048 M=256 C=128", seg, l1, 128)):
+        d, idx = geometry.three_nn_torch(x1, x2)
+        w32 = geometry.interpolation_weights(d)
+        B, N, M = x1.shape[0], x1.shape[1], x2.shape[1]
+        pre = torch.from_numpy(g.randn(B, M, C).astype(np.float32)).to(dev)
+        for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            a = (pre.to(dt), idx, w32.to(dt))
+            es = a[0].element_size()
+            out.append(("three_interp", f"{label} {name}",
+                        lambda a=a: _three_interp(*a),
+                        lambda a=a: geometry.three_interpolate_torch(*a),
+                        B * M * C * es + B * N * 3 * (4 + es)
+                        + B * N * C * es))
+    H, W, C = 16, 16, 128
+    for B, seed, what in ((16, 5, "serving"), (24, 6, "training")):
+        pts, _, K, R, t = (torch.from_numpy(a).to(dev) for a in
+                           semseg_request(B, 2048, (64, 64), seed=seed))
+        uv, _ = projection.project_points(pts[..., :3].contiguous(), K, R, t)
+        uv = (uv / 4.0).contiguous()
+        fmap = torch.from_numpy(g.randn(B, H, W, C).astype(np.float32)).to(
+            dev)
+        N = uv.shape[1]
+        for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            a = (fmap.to(dt), uv)
+            es = a[0].element_size()
+            out.append(("bilinear", f"{what} map [{B},{H},{W},{C}] at "
+                        f"{B}x{N} {name}",
+                        lambda a=a: cuda_kernels.bilinear_sample(*a),
+                        lambda a=a: cuda_kernels.bilinear_sample_torch(*a),
+                        B * H * W * C * es + B * N * 8 + B * N * C * es))
+    return out
+
+
+def sass_counts(path):
+    """Each kernel function of a built library, from ``cuobjdump -sass``:
+    {"body": SASS instructions up to its last EXIT, NOPs left out (the path
+    of one thread that runs to the end), "after": those after it (the
+    subroutines the body calls, such as the 64-bit division; the closing
+    branch left out), "calls": its CALL instructions}; {} without
+    cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    text = subprocess.run([exe, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        ins = [m.group(1) for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+([^;]*?)\s*;", block)]
+        ins = [i for i in ins if not i.startswith("NOP")]
+        ends = [k for k, i in enumerate(ins) if "EXIT" in i]
+        last = ends[-1] if ends else len(ins) - 1
+        after = ins[last + 1:]
+        if after and after[0].startswith("BRA"):
+            after = after[1:]
+        out[name] = {"body": last + 1, "after": len(after),
+                     "calls": sum("CALL" in i for i in ins)}
     return out
 
 
@@ -284,16 +433,26 @@ def _same(call, plain, libs, name):
     return same
 
 
-def _timed(call, libs, name):
+def _timed(call, libs, name, own=False):
     """Device ms of a call with each library of ``libs`` (tag -> (lib,
     plan)) in place of the checkout's, in the order checkout, copies,
-    copies reversed, checkout; each the mean of its two readings."""
+    copies reversed, checkout; each the mean of its two readings. With
+    ``own``: (that, the kernel's own ms -- the records whose name holds
+    ``name`` --, the kernels and copies a call)."""
     order = list(libs) + list(reversed(libs))
     readings = {tag: [] for tag in libs}
     for tag in order:
         with _using(name, *libs[tag]):
-            readings[tag].append(device_ms(call, 20))
-    return {tag: float(np.mean(v)) for tag, v in readings.items()}
+            per = device_kernels(call, 20)
+        readings[tag].append((
+            sum(ms for ms, _ in per.values()),
+            sum(ms for k, (ms, _) in per.items() if name in k),
+            sum(n for _, n in per.values())))
+    mean = {tag: np.mean(v, axis=0) for tag, v in readings.items()}
+    if not own:
+        return {tag: float(m[0]) for tag, m in mean.items()}
+    return tuple({tag: float(m[i]) for tag, m in mean.items()}
+                 for i in range(3))
 
 
 def main(argv=None) -> int:
@@ -327,7 +486,7 @@ def main(argv=None) -> int:
         copies = [(name, src, pool.submit(_variant, src, name))
                   for name, src in srcs if name in libs]
         inst = {n: pool.submit(_instrumented, n) for n in names
-                if n != "fused_sa"}
+                if n in PHASED}
     for name, src, lib in copies:
         libs[name][src] = (lib.result(), {})
     inst = {n: lib.result() for n, lib in inst.items()}
@@ -388,10 +547,30 @@ def main(argv=None) -> int:
                     / (buf[NN_STEPS] or 1), "warps": buf[NN_WARPS]})
         rows.append(row)
         print(json.dumps(row), flush=True)
+    for kernel, label, call, plain, nbytes in interp_cases(dev):
+        if kernel not in names:
+            continue
+        call_ms, own_ms, per_call = _timed(call, libs[kernel], kernel,
+                                           own=True)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        row = {"kernel": kernel, "case": label, "device_ms": call_ms,
+               "kernel_ms": own_ms, "kernels_per_call": per_call,
+               "bound_ms": bound_ms,
+               "bound_share": {t: bound_ms / v if v else None
+                               for t, v in own_ms.items()},
+               "bit_exact": _same(call, plain, libs[kernel], kernel)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    sass = {}
+    for n in set(names) & {"three_interp", "bilinear"}:
+        for tag, (lib, _) in libs[n].items():
+            sass[f"{n} {tag}"] = counts = sass_counts(lib._name)
+            for fn, c in counts.items():
+                print(f"sass {n} {tag}: {fn}: {json.dumps(c)}", flush=True)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "sample_phases.json"), "w") as f:
         json.dump({"card": card, "src": args.src, "ptxas": ptxas,
-                   "rows": rows}, f, indent=1)
+                   "rows": rows, "sass": sass}, f, indent=1)
     return 0
 
 

@@ -29,10 +29,13 @@ def fake_kernels(monkeypatch):
     monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
     monkeypatch.setattr(ck, "_ptr", lambda t: t)
     monkeypatch.setattr(ck, "_stream", lambda t: None)
-    # limits: none; threads a block of the 3-NN kernels: csrc's
-    threads = {"mm3d_three_nn_threads": 128, "mm3d_fused_fp_threads": 256}
+    # limits: none, but for the grid's y axis; threads a block of the 3-NN
+    # kernels: csrc's
+    consts = {"mm3d_three_nn_threads": 128, "mm3d_fused_fp_threads": 256,
+              "mm3d_three_interp_max_batch": 65535,
+              "mm3d_bilinear_max_batch": 65535}
     monkeypatch.setattr(ck, "_fn", lambda symbol: (
-        lambda: threads.get(symbol, 1 << 20)))
+        lambda: consts.get(symbol, 1 << 20)))
 
     def launch(symbol, *a):
         if symbol == "mm3d_fps":
@@ -64,7 +67,10 @@ def fake_kernels(monkeypatch):
             assert (lanes, a[1], smem) == plan and smem <= ck.SMEM_LIMIT
             a[6].copy_(ck.fused_fp_torch(a[2], a[3], a[4], a[5]))
         elif symbol == "mm3d_three_interp":
-            a[5].copy_(tops.three_interpolate_torch(a[2], a[3], a[4]))
+            # the weights as the caller gave them, their dtype flagged
+            assert a[1] == int(a[5].dtype == torch.bfloat16)
+            launch.weights.append(a[5])
+            a[6].copy_(tops.three_interpolate_torch(a[3], a[4], a[5]))
         elif symbol == "mm3d_gather_bwd":
             a[5].copy_(tops.gather_backward_torch(a[2], a[3], a[12], a[4]))
         elif symbol == "mm3d_bilinear":
@@ -73,6 +79,7 @@ def fake_kernels(monkeypatch):
             raise NotImplementedError(symbol)
 
     launch.producers = []  # each fused SA launch's plan: 0 the loop kernel
+    launch.weights = []  # each three_interp launch's weight operand
     monkeypatch.setattr(ck, "_launch", launch)
     ck.reset_launches()
     return ck

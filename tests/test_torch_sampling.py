@@ -205,12 +205,14 @@ def test_build_variant_digest_and_command(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name,kernel", [
     ("three_nn.cu", "three_nn"), ("fused_fp.cu", "fused_fp"),
     ("fps.cu", "fps"), ("ball_query.cu", "ball_query"),
-    ("fused_sa.cu", "fused_sa"), ("three_interp.cu", None),
-    ("three_nn.cuh", None), ("bilinear.cu", None)])
+    ("fused_sa.cu", "fused_sa"), ("three_interp.cu", "three_interp"),
+    ("three_nn.cuh", None), ("bilinear.cu", "bilinear"),
+    ("common.cuh", None)])
 def test_sample_phases_src_kernels(name, kernel):
     """``sample_phases --src`` maps a copy to its kernel by file name, the
-    3-NN kernels included, and refuses any other name before it looks for
-    a card."""
+    3-NN kernels and the two byte-bound forwards (three_interp, bilinear)
+    included, and refuses any other name (a header) before it looks for a
+    card."""
     from mm3d_tpu_torch.utils import sample_phases
 
     path = f"build/old/mm3d_tpu_torch/csrc/{name}"
