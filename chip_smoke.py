@@ -40,7 +40,13 @@ that goes wrong:
    call: the device time per call from torch.profiler (``ms``, ``plain_ms``,
    ``library_ms``, the numbers of the kernels line) and CUDA events around
    a call (``*call_ms``, the host's launch time included); knn_point, the
-   plain selection ahead of the given-index kernel, is timed beside it;
+   plain selection ahead of the given-index kernel, is timed beside it.
+   At config 3's shapes (pointnet2_part_seg_msg), each timed: FPS 2,048 ->
+   512 and 512 -> 128, the ball query (bit-exact) and the ball-query fused
+   SA tail (bf16 and f32) at the five MSG scales (K = 32, 64, 128 over 2,048
+   points; K = 64, 128 over 512; widths up to (128,196,256)), the fused FP
+   tail at FP2 and FP1 (bf16, f32), and at B=24 three_nn, three_interpolate
+   and its backward at FP2 and FP1 and the gather backward of each scale;
 3. serves fusion_cls through ``make_predictor`` at full width (B=128 clouds
    of 1024 points, 64x64 images, 40 classes, random seeded weights) in bf16
    and fp32: 3 requests each with the launch counts reset just before, then
@@ -59,6 +65,14 @@ that goes wrong:
    fused SA twice each; fp32: FPS and ball query twice each), fp32
    kernels-vs-plain parity, bf16-vs-fp32 agreement, ms per forward and
    clouds/s;
+3d. serves pointnet2_part_seg_msg (config 3) at full width: B=16
+   ShapeNetPart-style clouds of 2,048 points with their one-hot categories,
+   50 parts, 3 requests in bf16 and fp32: per-point log-probs (shape,
+   finiteness, normalisation), the launches per forward (FPS twice; bf16
+   the fused SA tail a scale, five; fp32 the ball query a scale; the fused
+   FP tail twice), fp32 kernels-vs-plain parity, bf16-vs-fp32 agreement of
+   the category-masked argmax per point, ms per forward, clouds/s and
+   points/s; pointnet2_part_seg_ssg the same with one request per dtype;
 4. trains fusion_cls at full width (B=24 clouds, the trainer's default), in
    fp32 with TF32 off and then in bf16 mixed precision: one step on the
    kernel path against one on the plain path from the same state and batch
@@ -80,6 +94,14 @@ that goes wrong:
    parity, launches per step (FPS and the gather backward twice each, no
    ball query), step time, clouds/s, peak memory and one epoch of
    ``Trainer.fit``;
+4d. trains pointnet2_part_seg_msg the same way (B=24 clouds of 2,048
+   points, random scale and shift, dropout 0.5): kernel-vs-plain step
+   parity, the launches of one step (FPS twice, the ball query and the
+   gather backward five times, three_nn and three_interpolate twice and the
+   interpolation's two weighted gather backwards), of a BN refresh and of
+   an eval forward, ten steps on one batch, step time, clouds/s, points/s,
+   peak memory and one short epoch of ``Trainer.fit`` ending in an eval
+   with its instance and class mIoU;
 5. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -105,6 +127,11 @@ TRAIN_SIZE, TEST_SIZE = 240, 48  # one epoch of 10 steps, 2 eval batches
 # fusion_sem_seg training: TrainConfig's batch of the registry's 2048-point
 # blocks; one short epoch of 3 steps and 1 eval batch
 SEG_TRAIN_SIZE, SEG_TEST_SIZE = 72, 24
+# config 3 (pointnet2_part_seg_msg): 16 ShapeNetPart-style clouds of the
+# registry's 2048 points a request, 16 categories, 50 parts; training at
+# TrainConfig's batch, one short epoch of 3 steps and 1 eval batch
+PART_BATCH, PART_NPOINT, PART_CATS, PART_PARTS = 16, 2048, 16, 50
+PART_TRAIN_SIZE, PART_TEST_SIZE = 72, 24
 # H100 SXM published peaks (NVIDIA H100 data sheet):
 # device memory rate, dense bf16 tensor-core rate, f32 CUDA-core rate
 PEAK_BYTES_S = 3.35e12
@@ -398,6 +425,254 @@ def sa_check(torch, ops, label, fn, shape, dt):
     return {"dtype": str(dt).split(".")[-1], "max_abs_err": float(err.max())}
 
 
+def fps_entry(torch, ops, label, x, npoint, start, timed):
+    """FPS on the card bit for bit its plain twin; ``timed``: its device
+    time, the twin's and its bound -> the entry of its row."""
+    got = ops.farthest_point_sample(x, npoint, start)
+    with ops.use_impl("torch"):
+        want = ops.farthest_point_sample(x, npoint, start)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"FPS {label}: not bit-exact")
+    entry = {"bit_exact": True}
+    if timed:
+        B, N, _ = x.shape
+        entry.update(times(torch, lambda: ops.farthest_point_sample(
+            x, npoint, start), 20))
+        with ops.use_impl("torch"):
+            entry.update(times(
+                torch, lambda: ops.farthest_point_sample(x, npoint, start),
+                3, "plain_", warmup=1))
+        entry.update(bound(
+            B * N * 12 + B * npoint * 4,
+            {"float32": 9 * B * (npoint - 1) * N}))
+    return entry
+
+
+def ball_query_entry(torch, ops, geometry, label, radius, K, x, cents,
+                     timed):
+    """The ball query on the card bit for bit its plain twin; ``timed``: as
+    ``fps_entry`` -> (the entry of its row, the indices)."""
+    got = ops.query_ball_point(radius, K, x, cents)
+    with ops.use_impl("torch"):
+        want = ops.query_ball_point(radius, K, x, cents)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"ball query {label}: not bit-exact")
+    entry = {"bit_exact": True}
+    if timed:
+        B, N, _ = x.shape
+        S = cents.shape[1]
+        entry.update(times(torch, lambda: ops.query_ball_point(
+            radius, K, x, cents), 20))
+        with ops.use_impl("torch"):
+            entry.update(times(torch, lambda: ops.query_ball_point(
+                radius, K, x, cents), 5, "plain_"))
+        visits = ball_query_visits(torch, geometry, radius, K, x, cents)
+        entry.update(bound(
+            (B * N + B * S) * 12 + B * S * K * 4,
+            {"float32": ball_query_flops(B, N, visits)}))
+    return entry, got
+
+
+def fused_sa_entry(torch, ops, geometry, label, radius, K, x, cents, base,
+                   dtname, timed):
+    """The ball-query fused SA tail on the card against its plain twin
+    (``sa_check``) over ``base`` (``sa_operands``) cast to ``dtname``;
+    ``timed``: as ``fps_entry`` -> the entry of its row."""
+    dt = getattr(torch, dtname)
+    B, N, _ = x.shape
+    S = cents.shape[1]
+    C1, C2, C3 = base[0].shape[-1], base[2].shape[-1], base[4].shape[-1]
+    args = (radius, K, x, cents, *[a.to(dt) for a in base])
+    entry = sa_check(torch, ops, f"fused SA {label} {dtname}",
+                     lambda: ops.fused_sa(*args), (B, S, C3), dt)
+    if timed:
+        entry.update(times(torch, lambda: ops.fused_sa(*args), 20))
+        with ops.use_impl("torch"):
+            entry.update(times(torch, lambda: ops.fused_sa(*args), 5,
+                               "plain_"))
+        # MLP products in the features' dtype, selection in f32
+        es = 2 if dt == torch.bfloat16 else 4
+        visits = ball_query_visits(torch, geometry, radius, K, x, cents)
+        flops = {"bfloat16": 0, "float32": ball_query_flops(B, N, visits)}
+        flops[dtname] += 2 * B * S * K * (C1 * C2 + C2 * C3)
+        entry.update(bound(
+            (B * N + B * S) * 12 + (B * N * C1 + B * S * C1) * es
+            + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
+            flops))
+    return entry
+
+
+def gather_entry(torch, ops, label, gg, idx, n, timed):
+    """The gather backward's unweighted kernel (``gather_backward_check``);
+    ``timed``: its device time, the twin's, one index_add_'s and its bound
+    -> the entry of its row."""
+    entry = gather_backward_check(torch, ops, label, gg, idx, n)
+    if timed:
+        dev, dt = gg.device, gg.dtype
+        B, C_ = gg.shape[0], gg.shape[-1]
+        F = idx[0].numel()
+        entry.update(times(torch, lambda: ops.gather_backward(
+            gg, idx, n), 20))
+        with ops.use_impl("torch"):
+            entry.update(times(
+                torch, lambda: ops.gather_backward(gg, idx, n), 20,
+                "plain_"))
+        # the library yardstick: one index_add_ into zeros of g's dtype
+        # (bf16 sums in bf16 there), with the flat int64 row index built
+        # beforehand
+        offs = (torch.arange(B, device=dev) * n).reshape(B, 1, 1)
+        flat_idx = (idx.long() + offs).reshape(-1)
+        flat_g = gg.reshape(-1, C_)
+        entry.update(times(torch, lambda: torch.zeros(
+            B * n, C_, device=dev, dtype=dt).index_add_(
+                0, flat_idx, flat_g), 20, "library_"))
+        es = gg.element_size()
+        entry.update(bound(B * F * C_ * es + B * F * 4 + B * n * C_ * es,
+                           {"float32": B * F * C_}))
+    return entry
+
+
+def fused_fp_entry(torch, ops, label, x1, x2, pre32, skip32, dtname,
+                   timed):
+    """The fused FP tail on the card against its plain twin (f32 1e-6, bf16
+    2e-2 of max|ref|) on pre32 / skip32 cast to ``dtname``; ``timed``: its
+    device time, the twin's and its bound -> the entry of its row."""
+    dt = getattr(torch, dtname)
+    Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
+    C = pre32.shape[-1]
+    pre, skip = pre32.to(dt), skip32.to(dt)
+    got = ops.fused_fp(x1, x2, pre, skip)
+    with ops.use_impl("torch"):
+        want = ops.fused_fp(x1, x2, pre, skip)
+    torch.cuda.synchronize()
+    check(got.shape == (Bx, Nx, C) and got.dtype == dt,
+          f"fused FP {label} {dtname}: shape/dtype")
+    rel, err = _rel_err(got, want)
+    check(rel < (2e-2 if dt == torch.bfloat16 else 1e-6),
+          f"fused FP {label} {dtname}: max|d|/max|ref| {rel}")
+    entry = {"dtype": dtname, "max_abs_err": err,
+             "bit_exact": bool(torch.equal(got, want))}
+    if timed:
+        entry.update(times(torch, lambda: ops.fused_fp(x1, x2, pre, skip),
+                           20))
+        with ops.use_impl("torch"):
+            entry.update(times(torch, lambda: ops.fused_fp(
+                x1, x2, pre, skip), 10, "plain_"))
+        # no single PyTorch call computes this function
+        entry["library_ms"] = None
+        es = pre.element_size()
+        entry.update(bound(
+            (Bx * Nx + Bx * Mx) * 12 + (Bx * Mx * C + 2 * Bx * Nx * C) * es,
+            # 8 f32 operations a candidate (NN_FLOPS_PER_CANDIDATE), 6 per
+            # interpolated channel (3 products, 2 sums, the skip add)
+            {"float32": NN_FLOPS_PER_CANDIDATE * Bx * Nx * Mx
+             + 6 * Bx * Nx * C}))
+    return entry
+
+
+def three_nn_entry(torch, ops, label, x1, x2, timed):
+    """three_nn on the card bit for bit its plain twin; ``timed``: its
+    device time, the twin's, cdist + topk's and its bound -> (the entry of
+    its row, (d2, idx))."""
+    d, idx = ops.three_nn(x1, x2)
+    with ops.use_impl("torch"):
+        wd, wi = ops.three_nn(x1, x2)
+    torch.cuda.synchronize()
+    check(d.shape == idx.shape == (x1.shape[0], x1.shape[1], 3)
+          and idx.dtype == torch.int32, f"three_nn {label}: shape/dtype")
+    check(torch.equal(idx, wi) and torch.equal(d, wd),
+          f"three_nn {label}: not bit-exact")
+    entry = {"bit_exact": True, "max_abs_err": 0.0}
+    if timed:
+        Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
+        entry.update(times(torch, lambda: ops.three_nn(x1, x2), 20))
+        with ops.use_impl("torch"):
+            entry.update(times(torch, lambda: ops.three_nn(x1, x2), 10,
+                               "plain_"))
+        # the library yardstick: all distances, then the 3 smallest
+        entry.update(times(torch, lambda: torch.cdist(x1, x2).topk(
+            3, dim=-1, largest=False), 20, "library_"))
+        entry.update(bound((Bx * Nx + Bx * Mx) * 12 + Bx * Nx * 3 * 8,
+                           {"float32": NN_FLOPS_PER_CANDIDATE * Bx * Nx
+                            * Mx}))
+    return entry, (d, idx)
+
+
+def three_interp_rows(torch, ops, cuda_kernels, label, d, idx, pre32, co32,
+                      record):
+    """three_interpolate at one shape (pre32 [B,M,C], the 3-NN d2 and idx
+    [B,N,3], a cotangent co32 [B,N,C]), bf16 and f32: the forward bit for
+    bit its twin, one kernel a call, timed; the backward (d_points, one
+    weighted gather-backward launch) against autograd of the plain path
+    (max|d| / max|ref| <= 1e-6 f32, 1e-2 bf16), timed; and that launch,
+    captured, checked and timed alone (``weighted_gather_row``)."""
+    B, M, C = pre32.shape
+    Nx = idx.shape[1]
+    w32 = ops.interpolation_weights(d)
+    for dtname in ("bfloat16", "float32"):
+        dt = getattr(torch, dtname)
+        pre, w, co = pre32.to(dt), w32.to(dt), co32.to(dt)
+        got = ops.three_interpolate(pre, idx, w)
+        with ops.use_impl("torch"):
+            want = ops.three_interpolate(pre, idx, w)
+        torch.cuda.synchronize()
+        check(got.shape == (B, Nx, C) and got.dtype == dt,
+              f"three_interpolate {label} {dtname}: shape/dtype")
+        check(torch.equal(got, want),
+              f"three_interpolate {label} {dtname}: not bit-exact")
+        entry = {"dtype": dtname, "bit_exact": True, "max_abs_err": 0.0,
+                 **times(torch, lambda: ops.three_interpolate(
+                     pre, idx, w), 20, kernel="three_interp")}
+        # the weights reach the kernel in the dtype passed: one kernel a
+        # call, no cast ahead of it
+        check(entry["kernels_per_call"] == 1,
+              f"three_interpolate {label} {dtname}: "
+              f"{entry['kernels_per_call']} kernels a call")
+        with ops.use_impl("torch"):
+            entry.update(times(torch, lambda: ops.three_interpolate(
+                pre, idx, w), 10, "plain_"))
+        # no single PyTorch call computes this function
+        entry["library_ms"] = None
+        es = pre.element_size()
+        entry.update(bound(B * M * C * es + B * Nx * 3 * (4 + w.element_size())
+                           + B * Nx * C * es, {"float32": 5 * B * Nx * C}))
+        record("three_interpolate", f"{label} {dtname}", entry)
+
+        # backward: d_points through the gather-backward kernel
+        def grad_of(impl):
+            with ops.use_impl(impl):
+                p = pre.clone().requires_grad_(True)
+                out = ops.three_interpolate(p, idx, w)
+            return p, out
+
+        pk, ok_ = grad_of("auto")
+        pp, op_ = grad_of("torch")
+        gk = torch.autograd.grad(ok_, pk, co, retain_graph=True)[0]
+        gp = torch.autograd.grad(op_, pp, co, retain_graph=True)[0]
+        torch.cuda.synchronize()
+        rel, err = _rel_err(gk, gp)
+        check(gk.dtype == dt and rel <= (1e-2 if dt == torch.bfloat16
+                                         else 1e-6),
+              f"three_interpolate backward {label} {dtname}: "
+              f"max|d|/max|ref| {rel}")
+        entry = {"dtype": dtname, "max_abs_err": err, "rel_err": rel,
+                 **times(torch, lambda: torch.autograd.grad(
+                     ok_, pk, co, retain_graph=True), 20)}
+        entry.update(times(torch, lambda: torch.autograd.grad(
+            op_, pp, co, retain_graph=True), 10, "plain_"))
+        entry["library_ms"] = None
+        # g and w read, d_points written; f32 sums of the 3 products
+        entry.update(bound(B * Nx * C * es + B * Nx * 3 * (4 + es)
+                           + B * M * C * es,
+                           {"float32": 2 * 3 * B * Nx * C}))
+        record("three_interpolate_backward", f"{label} {dtname}", entry)
+        weighted_gather_row(
+            torch, ops, cuda_kernels,
+            f"three_interpolate d_points {label} {dtname}",
+            lambda: torch.autograd.grad(ok_, pk, co, retain_graph=True),
+            record)
+
+
 def kernel_checks(torch, ops, geometry, dev):
     """Each kernel against its plain twin at the serving path's shapes."""
     from mm3d_tpu_torch.ops import cuda_kernels
@@ -456,24 +731,8 @@ def kernel_checks(torch, ops, geometry, dev):
         ("48 points tiled to 1024", tiled(4, 48, 1024), 300, 5, False),
         ("40 points tiled to 6000", tiled(2, 40, 6000), 100, 0, False)]
     for label, x, npoint, start, timed in fps_cases:
-        got = ops.farthest_point_sample(x, npoint, start)
-        with ops.use_impl("torch"):
-            want = ops.farthest_point_sample(x, npoint, start)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"FPS {label}: not bit-exact")
-        entry = {"bit_exact": True}
-        if timed:
-            B, N, _ = x.shape
-            entry.update(times(torch, lambda: ops.farthest_point_sample(
-                x, npoint, start), 20))
-            with ops.use_impl("torch"):
-                entry.update(times(
-                    torch, lambda: ops.farthest_point_sample(x, npoint, start),
-                    3, "plain_", warmup=1))
-            entry.update(bound(
-                B * N * 12 + B * npoint * 4,
-                {"float32": 9 * B * (npoint - 1) * N}))
-        record("fps", label, entry)
+        record("fps", label, fps_entry(torch, ops, label, x, npoint, start,
+                                       timed))
 
     # --- ball query: SA1, SA2 and fusion_sem_seg's SA1 and SA2 (B=16)
     # timed; zero-hit centroids, ragged N (not a multiple of the 256 points
@@ -517,26 +776,10 @@ def kernel_checks(torch, ops, geometry, dev):
     bq_cases.append(("d2 == r2 on the 1/16 grid", 0.5, 32, grid,
                      grid[:, :50].contiguous(), False))
     for label, radius, K, x, cents, timed in bq_cases:
-        got = ops.query_ball_point(radius, K, x, cents)
-        with ops.use_impl("torch"):
-            want = ops.query_ball_point(radius, K, x, cents)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"ball query {label}: not bit-exact")
-        entry = {"bit_exact": True}
+        entry, got = ball_query_entry(torch, ops, geometry, label, radius, K,
+                                      x, cents, timed)
         if label.startswith("zero-hit"):
             check(bool((got[:, :7] == 0).all()), "zero-hit rows not all 0")
-        if timed:
-            B, N, _ = x.shape
-            S = cents.shape[1]
-            entry.update(times(torch, lambda: ops.query_ball_point(
-                radius, K, x, cents), 20))
-            with ops.use_impl("torch"):
-                entry.update(times(torch, lambda: ops.query_ball_point(
-                    radius, K, x, cents), 5, "plain_"))
-            visits = ball_query_visits(torch, geometry, radius, K, x, cents)
-            entry.update(bound(
-                (B * N + B * S) * 12 + B * S * K * 4,
-                {"float32": ball_query_flops(B, N, visits)}))
         record("ball_query", label, entry)
 
     # --- fused SA tail: SA1 and SA2 shapes, bf16 and fp32, timed; zero-hit
@@ -548,29 +791,11 @@ def kernel_checks(torch, ops, geometry, dev):
             ("zero-hit centroids", 0.2, 32, xyz1, far, (64, 64, 128),
              False)):
         B, N, _ = x.shape
-        S = cents.shape[1]
-        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
-        visits = ball_query_visits(torch, geometry, radius, K, x, cents)
-        for dtname, dt in (("bfloat16", torch.bfloat16),
-                           ("float32", torch.float32)):
-            args = (radius, K, x, cents, *[a.to(dt) for a in base])
-            entry = sa_check(torch, ops, f"fused SA {label} {dtname}",
-                             lambda: ops.fused_sa(*args), (B, S, C3), dt)
-            if timed:
-                entry.update(times(torch, lambda: ops.fused_sa(*args), 20))
-                with ops.use_impl("torch"):
-                    entry.update(times(torch, lambda: ops.fused_sa(*args), 5,
-                                       "plain_"))
-                # MLP products in the features' dtype, selection in f32
-                es = 2 if dt == torch.bfloat16 else 4
-                flops = {"bfloat16": 0,
-                         "float32": ball_query_flops(B, N, visits)}
-                flops[dtname] += 2 * B * S * K * (C1 * C2 + C2 * C3)
-                entry.update(bound(
-                    (B * N + B * S) * 12 + (B * N * C1 + B * S * C1) * es
-                    + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
-                    flops))
-            record("fused_sa", f"{label} {dtname}", entry)
+        base = sa_operands(torch, g, dev, B, N, cents.shape[1], C1, C2, C3)
+        for dtname in ("bfloat16", "float32"):
+            record("fused_sa", f"{label} {dtname}", fused_sa_entry(
+                torch, ops, geometry, label, radius, K, x, cents, base,
+                dtname, timed))
 
     # --- fused SA tail over given indices: SA1 and SA2 shapes with the kNN
     # indices of knn_point on the card, bf16 and fp32; then a row of one
@@ -704,29 +929,8 @@ def kernel_checks(torch, ops, geometry, dev):
              torch.float32, False)):
         gg = torch.from_numpy(g.randn(*idx.shape, C).astype(np.float32)).to(
             dev).to(dt)
-        entry = gather_backward_check(torch, ops, label, gg, idx, n)
-        if timed:
-            B, C_ = gg.shape[0], gg.shape[-1]
-            F = idx[0].numel()
-            entry.update(times(torch, lambda: ops.gather_backward(
-                gg, idx, n), 20))
-            with ops.use_impl("torch"):
-                entry.update(times(
-                    torch, lambda: ops.gather_backward(gg, idx, n), 20,
-                    "plain_"))
-            # the library yardstick: one index_add_ into zeros of g's dtype
-            # (bf16 sums in bf16 there), with the flat int64 row index built
-            # beforehand
-            offs = (torch.arange(B, device=dev) * n).reshape(B, 1, 1)
-            flat_idx = (idx.long() + offs).reshape(-1)
-            flat_g = gg.reshape(-1, C_)
-            entry.update(times(torch, lambda: torch.zeros(
-                B * n, C_, device=dev, dtype=dt).index_add_(
-                    0, flat_idx, flat_g), 20, "library_"))
-            es = gg.element_size()
-            entry.update(bound(B * F * C_ * es + B * F * 4 + B * n * C_ * es,
-                               {"float32": B * F * C_}))
-        record("gather_backward", label, entry)
+        record("gather_backward", label, gather_entry(
+            torch, ops, label, gg, idx, n, timed))
     # the weighted form on the scalar path (C=24), out-of-range indices,
     # f32 and bf16
     for dt in (torch.float32, torch.bfloat16):
@@ -739,6 +943,7 @@ def kernel_checks(torch, ops, geometry, dev):
             torch, ops, label, gg, ridx.to(dev), 100, w))
     semseg_kernel_checks(torch, ops, dev, record)
     semseg_train_kernel_checks(torch, ops, dev, record)
+    partseg_kernel_checks(torch, ops, geometry, dev, record)
     nn_edge_checks(torch, ops, dev, record)
     return rows
 
@@ -964,6 +1169,99 @@ def bilinear_edge_checks(torch, ops, dev, record):
                    {"dtype": dtname, "bit_exact": True, "max_abs_err": 0.0})
 
 
+def msg_scales():
+    """(block, radius, K, widths) of config 3's five MSG scales, read from
+    the port's model: sa1's three over 2,048 points, sa2's two over 512."""
+    from mm3d_tpu_torch.models import get_model
+    m = get_model("pointnet2_part_seg_msg").builder()
+    return [(blk, r, k, mlp) for blk in ("sa1", "sa2")
+            for r, k, mlp in zip(getattr(m, blk).radius_list,
+                                 getattr(m, blk).nsample_list,
+                                 getattr(m, blk).mlp_list)]
+
+
+def partseg_kernel_checks(torch, ops, geometry, dev, record):
+    """The kernels at config 3's shapes, each against its plain twin and
+    timed. Serving (B=16 ShapeNetPart-style clouds of 2,048 points): FPS
+    2,048 -> 512 and 512 -> 128; the ball query and the ball-query fused SA
+    tail (bf16 and f32) at the five MSG scales, among them K = 128 over
+    2,048 points, (64,96,128) on one centroid's 128-row tile and
+    (128,196,256), whose 196 is not a multiple of 16; the fused FP tail at
+    FP2 (N=512, M=128, C=256) and FP1 (N=2,048, M=512, C=128), bf16 and
+    f32. Training (B=24): three_nn and three_interpolate (forward and
+    backward) at FP2 and FP1, and the gather backward of each scale's
+    gather (f32, the ball query's own indices). Tolerances as at the other
+    shapes."""
+    from mm3d_tpu_torch.data.synthetic import partseg_request
+    from mm3d_tpu_torch.ops import cuda_kernels
+
+    def levels(B, seed):
+        xyz = torch.from_numpy(partseg_request(B, PART_NPOINT, seed=seed)[0]
+                               ).to(dev)
+        with ops.use_impl("torch"):
+            l1 = geometry.index_points(xyz, geometry.fps_torch(xyz, 512))
+            l2 = geometry.index_points(l1, geometry.fps_torch(l1, 128))
+        return {"sa1": (xyz, l1), "sa2": (l1, l2)}
+
+    lv = levels(PART_BATCH, 40)
+    for blk, (x, cents) in lv.items():
+        B, N, _ = x.shape
+        S = cents.shape[1]
+        label = f"config 3 {blk} B={B} N={N} npoint={S}"
+        record("fps", label, fps_entry(torch, ops, label, x, S, 0, True))
+    g = np.random.RandomState(12)
+    for blk, radius, K, (C1, C2, C3) in msg_scales():
+        x, cents = lv[blk]
+        B, N, _ = x.shape
+        S = cents.shape[1]
+        label = f"config 3 {blk} B={B} S={S} N={N} K={K} r={radius}"
+        record("ball_query", label, ball_query_entry(
+            torch, ops, geometry, label, radius, K, x, cents, True)[0])
+        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
+        wlabel = f"{label} ({C1},{C2},{C3})"
+        for dtname in ("bfloat16", "float32"):
+            record("fused_sa", f"{wlabel} {dtname}", fused_sa_entry(
+                torch, ops, geometry, wlabel, radius, K, x, cents, base,
+                dtname, True))
+    fp = {"FP2": (lv["sa1"][1], lv["sa2"][1], 256),
+          "FP1": (lv["sa1"][0], lv["sa1"][1], 128)}
+    for name, (x1, x2, C) in fp.items():
+        label = (f"config 3 {name} B={x1.shape[0]} N={x1.shape[1]} "
+                 f"M={x2.shape[1]} C={C}")
+        pre32 = torch.from_numpy(g.randn(x1.shape[0], x2.shape[1], C).astype(
+            np.float32)).to(dev)
+        skip32 = torch.from_numpy(g.randn(x1.shape[0], x1.shape[1], C).astype(
+            np.float32)).to(dev)
+        for dtname in ("bfloat16", "float32"):
+            record("fused_fp", f"{label} {dtname}", fused_fp_entry(
+                torch, ops, label, x1, x2, pre32, skip32, dtname, True))
+
+    # training shapes, B=24
+    lt = levels(TRAIN_BATCH, 41)
+    B = TRAIN_BATCH
+    fp = {"FP2": (lt["sa1"][1], lt["sa2"][1], 256),
+          "FP1": (lt["sa1"][0], lt["sa1"][1], 128)}
+    for name, (x1, x2, C) in fp.items():
+        N, M = x1.shape[1], x2.shape[1]
+        label = f"config 3 {name} B={B} N={N} M={M}"
+        entry, (d, idx) = three_nn_entry(torch, ops, label, x1, x2, True)
+        record("three_nn", label, entry)
+        three_interp_rows(
+            torch, ops, cuda_kernels, f"{label} C={C}", d, idx,
+            torch.from_numpy(g.randn(B, M, C).astype(np.float32)).to(dev),
+            torch.from_numpy(g.randn(B, N, C).astype(np.float32)).to(dev),
+            record)
+    for blk, radius, K, (C1, _, _) in msg_scales():
+        x, cents = lt[blk]
+        N, S = x.shape[1], cents.shape[1]
+        with ops.use_impl("torch"):
+            idx = ops.query_ball_point(radius, K, x, cents)
+        label = f"config 3 {blk} g[{B},{S},{K},{C1}] n={N} f32"
+        gg = torch.from_numpy(g.randn(B, S, K, C1).astype(np.float32)).to(dev)
+        record("gather_backward", label, gather_entry(
+            torch, ops, label, gg, idx, N, True))
+
+
 def semseg_kernel_checks(torch, ops, dev, record):
     """The fused FP tail and the bilinear sampling at fusion_sem_seg's
     serving shapes (B=16 blocks of 2048 points), against their plain twins.
@@ -1002,40 +1300,11 @@ def semseg_kernel_checks(torch, ops, dev, record):
             ("FP1 N=2048 M=256 C=128", xyz, l1, 128, True),
             ("duplicated sparse point", dup1, dup2, 128, False),
             ("1/16 grid, ties", grid1, grid2, 24, False)):
-        Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
-        pre32, skip32 = feats(Bx, Mx, C), feats(Bx, Nx, C)
-        for dtname, dt in (("bfloat16", torch.bfloat16),
-                           ("float32", torch.float32)):
-            pre, skip = pre32.to(dt), skip32.to(dt)
-            got = ops.fused_fp(x1, x2, pre, skip)
-            with ops.use_impl("torch"):
-                want = ops.fused_fp(x1, x2, pre, skip)
-            torch.cuda.synchronize()
-            check(got.shape == (Bx, Nx, C) and got.dtype == dt,
-                  f"fused FP {label} {dtname}: shape/dtype")
-            rel, err = _rel_err(got, want)
-            check(rel < (2e-2 if dt == torch.bfloat16 else 1e-6),
-                  f"fused FP {label} {dtname}: max|d|/max|ref| {rel}")
-            entry = {"dtype": dtname, "max_abs_err": err,
-                     "bit_exact": bool(torch.equal(got, want))}
-            if timed:
-                entry.update(times(torch, lambda: ops.fused_fp(
-                    x1, x2, pre, skip), 20))
-                with ops.use_impl("torch"):
-                    entry.update(times(torch, lambda: ops.fused_fp(
-                        x1, x2, pre, skip), 10, "plain_"))
-                # no single PyTorch call computes this function
-                entry["library_ms"] = None
-                es = pre.element_size()
-                entry.update(bound(
-                    (Bx * Nx + Bx * Mx) * 12
-                    + (Bx * Mx * C + 2 * Bx * Nx * C) * es,
-                    # 8 f32 operations a candidate (NN_FLOPS_PER_CANDIDATE),
-                    # 6 per interpolated channel (3 products, 2 sums, the
-                    # skip add)
-                    {"float32": NN_FLOPS_PER_CANDIDATE * Bx * Nx * Mx
-                     + 6 * Bx * Nx * C}))
-            record("fused_fp", f"{label} {dtname}", entry)
+        pre32 = feats(x1.shape[0], x2.shape[1], C)
+        skip32 = feats(x1.shape[0], x1.shape[1], C)
+        for dtname in ("bfloat16", "float32"):
+            record("fused_fp", f"{label} {dtname}", fused_fp_entry(
+                torch, ops, label, x1, x2, pre32, skip32, dtname, timed))
 
     # bilinear sampling at the projected points of the request (out-of-frame
     # and behind-camera points included), on a [16,16,16,128] stride-4 map
@@ -1150,28 +1419,7 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
             ("FP1 N=2048 M=256", xyz, l1, True),
             ("duplicated sparse point", dup1, dup2, False),
             ("1/16 grid, ties", grid1, grid2, False)):
-        d, idx = ops.three_nn(x1, x2)
-        with ops.use_impl("torch"):
-            wd, wi = ops.three_nn(x1, x2)
-        torch.cuda.synchronize()
-        check(d.shape == idx.shape == (x1.shape[0], x1.shape[1], 3)
-              and idx.dtype == torch.int32, f"three_nn {label}: shape/dtype")
-        check(torch.equal(idx, wi) and torch.equal(d, wd),
-              f"three_nn {label}: not bit-exact")
-        nn[label] = (d, idx)
-        entry = {"bit_exact": True, "max_abs_err": 0.0}
-        if timed:
-            Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
-            entry.update(times(torch, lambda: ops.three_nn(x1, x2), 20))
-            with ops.use_impl("torch"):
-                entry.update(times(torch, lambda: ops.three_nn(x1, x2), 10,
-                                   "plain_"))
-            # the library yardstick: all distances, then the 3 smallest
-            entry.update(times(torch, lambda: torch.cdist(x1, x2).topk(
-                3, dim=-1, largest=False), 20, "library_"))
-            entry.update(bound((Bx * Nx + Bx * Mx) * 12 + Bx * Nx * 3 * 8,
-                               {"float32": NN_FLOPS_PER_CANDIDATE * Bx * Nx
-                                * Mx}))
+        entry, nn[label] = three_nn_entry(torch, ops, label, x1, x2, timed)
         record("three_nn", label, entry)
 
     # --- three_interpolate: the forward bit-exact, the backward (d_points)
@@ -1181,73 +1429,8 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
                              ("FP1 N=2048 M=256 C=128", "FP1 N=2048 M=256",
                               256, 128)):
         d, idx = nn[key]
-        w32 = ops.interpolation_weights(d)
-        Nx = idx.shape[1]
-        pre32, co32 = feats(B, M, C), feats(B, Nx, C)
-        for dtname, dt in (("bfloat16", torch.bfloat16),
-                           ("float32", torch.float32)):
-            pre, w, co = pre32.to(dt), w32.to(dt), co32.to(dt)
-            got = ops.three_interpolate(pre, idx, w)
-            with ops.use_impl("torch"):
-                want = ops.three_interpolate(pre, idx, w)
-            torch.cuda.synchronize()
-            check(got.shape == (B, Nx, C) and got.dtype == dt,
-                  f"three_interpolate {label} {dtname}: shape/dtype")
-            check(torch.equal(got, want),
-                  f"three_interpolate {label} {dtname}: not bit-exact")
-            entry = {"dtype": dtname, "bit_exact": True, "max_abs_err": 0.0,
-                     **times(torch, lambda: ops.three_interpolate(
-                         pre, idx, w), 20, kernel="three_interp")}
-            # the weights reach the kernel in the dtype passed: one kernel
-            # a call, no cast ahead of it
-            check(entry["kernels_per_call"] == 1,
-                  f"three_interpolate {label} {dtname}: "
-                  f"{entry['kernels_per_call']} kernels a call")
-            with ops.use_impl("torch"):
-                entry.update(times(torch, lambda: ops.three_interpolate(
-                    pre, idx, w), 10, "plain_"))
-            # no single PyTorch call computes this function
-            entry["library_ms"] = None
-            es = pre.element_size()
-            entry.update(bound(B * M * C * es
-                               + B * Nx * 3 * (4 + w.element_size())
-                               + B * Nx * C * es,
-                               {"float32": 5 * B * Nx * C}))
-            record("three_interpolate", f"{label} {dtname}", entry)
-
-            # backward: d_points through the gather-backward kernel
-            def grad_of(impl):
-                with ops.use_impl(impl):
-                    p = pre.clone().requires_grad_(True)
-                    out = ops.three_interpolate(p, idx, w)
-                return p, out
-
-            pk, ok_ = grad_of("auto")
-            pp, op_ = grad_of("torch")
-            gk = torch.autograd.grad(ok_, pk, co, retain_graph=True)[0]
-            gp = torch.autograd.grad(op_, pp, co, retain_graph=True)[0]
-            torch.cuda.synchronize()
-            rel, err = _rel_err(gk, gp)
-            check(gk.dtype == dt and rel <= (1e-2 if dt == torch.bfloat16
-                                             else 1e-6),
-                  f"three_interpolate backward {label} {dtname}: "
-                  f"max|d|/max|ref| {rel}")
-            entry = {"dtype": dtname, "max_abs_err": err, "rel_err": rel,
-                     **times(torch, lambda: torch.autograd.grad(
-                         ok_, pk, co, retain_graph=True), 20)}
-            entry.update(times(torch, lambda: torch.autograd.grad(
-                op_, pp, co, retain_graph=True), 10, "plain_"))
-            entry["library_ms"] = None
-            # g and w read, d_points written; f32 sums of the 3 products
-            entry.update(bound(B * Nx * C * es + B * Nx * 3 * (4 + es)
-                               + B * M * C * es,
-                               {"float32": 2 * 3 * B * Nx * C}))
-            record("three_interpolate_backward", f"{label} {dtname}", entry)
-            weighted_gather_row(
-                torch, ops, cuda_kernels,
-                f"three_interpolate d_points {label} {dtname}",
-                lambda: torch.autograd.grad(ok_, pk, co, retain_graph=True),
-                record)
+        three_interp_rows(torch, ops, cuda_kernels, label, d, idx,
+                          feats(B, M, C), feats(B, idx.shape[1], C), record)
 
     interp_edge_checks(torch, ops, dev, record)
 
@@ -1502,6 +1685,108 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
             "proj_valid_share": share,
             "fp32_kernels_vs_plain": fp32_delta,
             "bf16_vs_fp32": {"argmax_agreement": agree,
+                             "max_logp_delta": bf16_delta},
+            "throughput": rates}
+
+
+# launches of one part-seg serving forward: FPS at sa1 and sa2; bf16 the
+# fused SA tail a scale, fp32 the ball-query kernel a scale; the fused FP
+# tail at FP2 and FP1 (FP3 broadcasts sa3's one point)
+PARTSEG_SERVE_LAUNCHES = {
+    "pointnet2_part_seg_msg": {
+        "bfloat16": {"farthest_point_sample": 2, "fused_sa": 5,
+                     "fused_fp": 2},
+        "float32": {"farthest_point_sample": 2, "query_ball_point": 5,
+                    "fused_fp": 2}},
+    "pointnet2_part_seg_ssg": {
+        "bfloat16": {"farthest_point_sample": 2, "fused_sa": 2,
+                     "fused_fp": 2},
+        "float32": {"farthest_point_sample": 2, "query_ball_point": 2,
+                    "fused_fp": 2}}}
+
+
+def serve_partseg(torch, ops, cuda_kernels, dev, name, nreq):
+    """A part-seg model through make_predictor at full width: B=16
+    ShapeNetPart-style clouds of 2,048 points and their one-hot categories,
+    random seeded weights, bf16 and fp32, ``nreq`` requests each."""
+    from mm3d_tpu_torch.data.synthetic import (partseg_request,
+                                               shapenet_part_ranges)
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils.metrics import masked_part_argmax, part_ranges
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    B, N = PART_BATCH, PART_NPOINT
+    model = init_params(get_model(name).builder(), seed=0)
+    nontrivial_bn(model, seed=1)
+    state = model.state_dict()
+    preds = {"bfloat16": make_predictor(name, state, dtype=torch.bfloat16,
+                                        device=dev),
+             "float32": make_predictor(name, state, device=dev)}
+    reqs = [[torch.from_numpy(a).to(dev)
+             for a in partseg_request(B, N, seed=s)] for s in range(nreq)]
+    start, count = part_ranges(shapenet_part_ranges(), dev)
+    counts, logp = {}, {}
+    for dtname, pred in preds.items():
+        cuda_kernels.reset_launches()
+        logp[dtname] = [pred(*r[:2]) for r in reqs]
+        torch.cuda.synchronize()
+        counts[dtname] = launch_counts(cuda_kernels)
+        print(f"serve {name} {dtname}: {nreq} requests of B={B} x N={N}, "
+              f"launches {counts[dtname]}", flush=True)
+        for lp in logp[dtname]:
+            check(lp.shape == (B, N, PART_PARTS) and lp.dtype == torch.float32,
+                  f"{name} {dtname} log-probs shape {tuple(lp.shape)} "
+                  f"{lp.dtype}")
+            check(bool(torch.isfinite(lp).all()), f"{name} {dtname}: "
+                                                  "non-finite")
+            norm = float((lp.exp().sum(-1) - 1).abs().max())
+            check(norm < 1e-4, f"{name} {dtname}: exp(log-probs) sums off 1 "
+                               f"by {norm}")
+        want = expect(cuda_kernels, **{
+            k: v * nreq
+            for k, v in PARTSEG_SERVE_LAUNCHES[name][dtname].items()})
+        check(counts[dtname] == want, f"{name} {dtname} launches "
+                                      f"{counts[dtname]}, want {want}")
+    launches = {k: counts["bfloat16"][k] + counts["float32"][k]
+                for k in counts["float32"]}
+
+    with ops.use_impl("torch"):
+        plain = [preds["float32"](*r[:2]) for r in reqs]
+    fp32_delta = max(float((a - b).abs().max())
+                     for a, b in zip(logp["float32"], plain))
+    print(f"{name} fp32 kernels path vs plain path: max|d logp| "
+          f"{fp32_delta}", flush=True)
+    check(fp32_delta <= 1e-4, f"{name} fp32 kernels vs plain: {fp32_delta} "
+                              "> 1e-4")
+
+    # each point's part among its category's parts, as the eval takes it
+    def parts(lp, r):
+        cat = r[2].long()
+        return masked_part_argmax(lp, start[cat], count[cat])
+
+    a16 = torch.cat([parts(lp, r) for lp, r in zip(logp["bfloat16"], reqs)])
+    a32 = torch.cat([parts(lp, r) for lp, r in zip(logp["float32"], reqs)])
+    agree = float((a16 == a32).float().mean())
+    bf16_delta = max(float((a - b).abs().max())
+                     for a, b in zip(logp["bfloat16"], logp["float32"]))
+    print(f"{name} bf16 vs fp32: per-point category-masked argmax agreement "
+          f"{agree}, max|d logp| {bf16_delta}", flush=True)
+    check(agree >= 0.95, f"{name} bf16 vs fp32 argmax agreement {agree} "
+                         "< 0.95")
+
+    rates = {}
+    for dtname, pred in preds.items():
+        ms = cuda_ms(torch, lambda: pred(*reqs[0][:2]), 12, warmup=3)
+        rates[dtname] = {"forward_ms": ms, "clouds_per_s": B / ms * 1e3,
+                         "points_per_s": B * N / ms * 1e3}
+        print(f"serve {name} {dtname}: median forward {ms} ms, "
+              f"{rates[dtname]['clouds_per_s']} clouds/s, "
+              f"{rates[dtname]['points_per_s']} points/s at B={B} x N={N}",
+              flush=True)
+    return {"launches": launches, "launches_by_dtype": counts,
+            "fp32_kernels_vs_plain": fp32_delta,
+            "bf16_vs_fp32": {"masked_argmax_agreement": agree,
                              "max_logp_delta": bf16_delta},
             "throughput": rates}
 
@@ -1828,6 +2113,200 @@ def train_semseg(torch, ops, cuda_kernels, dev):
     return out
 
 
+# launches of one pointnet2_part_seg_msg train step: FPS twice, the ball
+# query a scale and the gather backward of each scale's gather, the 3-NN
+# and interpolation of FP2 and FP1 and the two interpolation backwards
+PARTSEG_TRAIN_LAUNCHES = {"farthest_point_sample": 2, "query_ball_point": 5,
+                          "three_nn": 2, "three_interpolate": 2,
+                          "gather_backward": 7}
+
+
+def train_partseg(torch, ops, cuda_kernels, dev):
+    """pointnet2_part_seg_msg training at full width (B=24 clouds of 2,048
+    points), fp32 (TF32 off) then bf16."""
+    import copy
+
+    from mm3d_tpu_torch.data.augment import TASK_PIPELINES
+    from mm3d_tpu_torch.data.pipeline import DataPipeline
+    from mm3d_tpu_torch.data.synthetic import shapenet_part_ranges
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import TrainConfig, Trainer, steps
+    from mm3d_tpu_torch.training.loop import build_datasets
+    from mm3d_tpu_torch.training.state import make_optimizer
+    from mm3d_tpu_torch.utils.metrics import part_ranges
+
+    name = "pointnet2_part_seg_msg"
+    spec = get_model(name)
+    task, names = "partseg", TASK_PIPELINES["partseg"]
+    B, N = TRAIN_BATCH, PART_NPOINT
+
+    def config(**kw):
+        return TrainConfig(model=name, train_size=PART_TRAIN_SIZE,
+                           test_size=PART_TEST_SIZE, epochs=1, batch_size=B,
+                           npoint=N, **kw)
+
+    train_ds, _ = build_datasets(config(), task)
+    batch = next(iter(DataPipeline(train_ds, B, shuffle=False,
+                                   to_device=dev).epoch(0)))
+    start, count = part_ranges(shapenet_part_ranges(), dev)
+    out = {"launches": expect(cuda_kernels)}
+
+    def make(dtype, seed=0):
+        return init_params(spec.builder(dtype=dtype), seed).to(dev)
+
+    def stepper(model, gen_seed=7, fixed=False):
+        """The train step; ``fixed``: no augmentation and no dropout, so
+        every step sees the very same batch."""
+        opt = make_optimizer(model.parameters(), "adam", 1e-4)
+        return steps.make_train_step(
+            model, spec.loss, opt, task,
+            augment_names=() if fixed else names,
+            generator=torch.Generator(dev).manual_seed(gen_seed),
+            deterministic=True if fixed else None)
+
+    for dtname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        res = {}
+        # (a) kernel path vs plain path, one step from the same state and
+        # batch (same generator seed: same augmentation and dropout draws).
+        # The plain path's gather backward is CUDA index_add_, whose atomics
+        # sum each row in a new order on every call; in bf16 the backward
+        # carries such an f32 difference, rounded to a neighbouring bf16
+        # value, through BN backwards whose sums cancel. In deterministic
+        # mode index_add_ sums each row in ascending order, the kernel's, so
+        # that plain step is the reference here; two more plain steps in
+        # the atomic order measure the spread of the default one
+        kmodel = make(dtype)
+        pmodel, amodel, bmodel = (copy.deepcopy(kmodel) for _ in range(3))
+        kstep, pstep = stepper(kmodel), stepper(pmodel)
+        astep, bstep = stepper(amodel), stepper(bmodel)
+        cuda_kernels.reset_launches()
+        mk = kstep(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        per_step = launch_counts(cuda_kernels)
+        with ops.use_impl("torch"):
+            torch.use_deterministic_algorithms(True)
+            try:
+                mp = pstep(batch, 1e-3, 0.1)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            astep(batch, 1e-3, 0.1)
+            bstep(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        label = f"train {name} {dtname}"
+        res["kernel_vs_plain"] = step_parity(torch, label, dtype, kmodel,
+                                             pmodel, mk, mp)
+        gk, gp = _grads(kmodel), _grads(pmodel)
+        sk, sp = _stats(kmodel), _stats(pmodel)
+        res["bit_identical"] = (
+            float(mk["loss"]) == float(mp["loss"])
+            and all(torch.equal(gk[n], gp[n]) for n in gk)
+            and all(torch.equal(sk[n], sp[n]) for n in sk))
+        # recorded, not gates: the largest gradient difference over the
+        # model's largest gradient element, kernel vs the atomic-order
+        # plain step and that step vs another
+        ga, gb = _grads(amodel), _grads(bmodel)
+        top = max(float(g.float().abs().max()) for g in ga.values())
+
+        def spread(x, y):
+            d, n = max((float((x[n].float() - y[n].float()).abs().max()), n)
+                       for n in x)
+            return {"max_abs_over_top": d / top, "tensor": n}
+
+        res["kernel_vs_atomic_plain"] = spread(gk, ga)
+        res["atomic_plain_vs_itself"] = spread(gb, ga)
+        print(f"{label}: kernel step bit-identical with the deterministic "
+              f"plain step: {res['bit_identical']}; largest gradient "
+              f"difference / largest gradient, kernel vs atomic-order plain "
+              f"{res['kernel_vs_atomic_plain']}, atomic-order plain twice "
+              f"{res['atomic_plain_vs_itself']}", flush=True)
+        # (b) launches of one step, of a BN refresh and of an eval forward
+        want = expect(cuda_kernels, **PARTSEG_TRAIN_LAUNCHES)
+        check(per_step == want, f"{label}: launches per step {per_step}, "
+                                f"want {want}")
+        refresh = steps.make_bn_refresh_step(
+            kmodel, task, names, torch.Generator(dev).manual_seed(3))
+        evaluate = steps.make_eval_step(
+            kmodel, spec.loss, task, PART_PARTS, part_start=start,
+            part_count=count, max_parts=int(count.max()))
+        cuda_kernels.reset_launches()
+        refresh(batch)
+        em = evaluate(batch)
+        torch.cuda.synchronize()
+        side = launch_counts(cuda_kernels)
+        # the refresh: a train forward (ball queries, 3-NN, interpolation);
+        # the eval: serving's launches in the model's dtype
+        serve_l = PARTSEG_SERVE_LAUNCHES[name][dtname]
+        check(side == expect(cuda_kernels, **{
+            k: PARTSEG_TRAIN_LAUNCHES.get(k, 0) + serve_l.get(k, 0)
+            for k in ("farthest_point_sample", "query_ball_point", "three_nn",
+                      "three_interpolate", "fused_sa", "fused_fp")}),
+              f"{label}: BN refresh + eval launched {side}")
+        check(int(em["count"]) == B * N and em["ious"].shape == (B,),
+              f"{label}: eval count / ious")
+        res["launches_per_step"] = per_step
+        res["launches_refresh_plus_eval"] = side
+        print(f"{label}: launches per step {per_step}; BN refresh + eval "
+              f"forward {side}", flush=True)
+        # (c) ten steps on one fixed batch: finite losses, and the loss
+        # falls
+        model = make(dtype, seed=1)
+        fixed = stepper(model, gen_seed=11, fixed=True)
+        losses = [float(fixed(batch, 1e-3, 0.1)["loss"]) for _ in range(10)]
+        check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+        check(losses[-1] < losses[0], f"{label}: loss did not fall "
+                                      f"{losses}")
+        res["fixed_batch_losses"] = losses
+        print(f"{label}: 10 steps on one batch, losses {losses}",
+              flush=True)
+        # (e) step time at B=24 x 2048 (the full step: scale, shift,
+        # dropout): CUDA events over 10 steps after 3 warm-ups
+        step = stepper(kmodel, gen_seed=13)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(torch, lambda: step(batch, 1e-3, 0.1), 10, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        res.update({"step_ms": ms, "clouds_per_s": B / ms * 1e3,
+                    "points_per_s": B * N / ms * 1e3,
+                    "peak_memory_bytes": peak})
+        print(f"{label}: median step {ms} ms, {res['clouds_per_s']} "
+              f"clouds/s, {res['points_per_s']} points/s at B={B} x N={N}, "
+              f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+        del (kmodel, pmodel, amodel, bmodel, model, step, kstep, pstep,
+             astep, bstep, fixed)
+        # (d) the main path: one short epoch of Trainer.fit (3 steps; eval
+        # over 24 clouds; in bf16 the BN refresh before it)
+        trainer = Trainer(config(dtype=dtname, device=str(dev)))
+        cuda_kernels.reset_launches()
+        final = trainer.fit()
+        torch.cuda.synchronize()
+        fit_launches = launch_counts(cuda_kernels)
+        nsteps = trainer.train_pipe.steps_per_epoch()
+        hist = trainer.history[0]
+        check(nsteps == PART_TRAIN_SIZE // B, f"fit: {nsteps} steps")
+        check(fit_launches["gather_backward"] == 7 * nsteps
+              and fit_launches["three_nn"] >= 2 * nsteps
+              and fit_launches["three_interpolate"] >= 2 * nsteps
+              and fit_launches["fused_fp"] == 2 * (PART_TEST_SIZE // B),
+              f"fit {label}: launches {fit_launches}")
+        check(np.isfinite(hist["train"]["loss"])
+              and np.isfinite(final["eval_loss"])
+              and 0.0 <= final["point_acc"] <= 1.0
+              and 0.0 <= final["instance_miou"] <= 1.0
+              and 0.0 <= final["class_miou"] <= 1.0,
+              f"fit {label}: metrics {hist} {final}")
+        for k, v in fit_launches.items():
+            out["launches"][k] += v
+        res["fit"] = {"train": hist["train"], "eval": final,
+                      "launches": fit_launches,
+                      "bn_refresh_steps": trainer._bn_refresh_n}
+        print(f"fit {label}: 1 epoch of {nsteps} steps, train "
+              f"{hist['train']}, eval {final}, launches {fit_launches}",
+              flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+        out[dtname] = res
+    return out
+
+
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
     named (fused SA, given-index fused SA and fused FP: bf16 serving;
@@ -1926,15 +2405,21 @@ def main():
         for s in (30, 31, 32)]
     served_pn2 = {name: serve(torch, ops, cuda_kernels, dev, name, clouds)
                   for name in ("pointnet2_cls_knn", "pointnet2_cls_ssg")}
+    served_part = {"pointnet2_part_seg_msg": serve_partseg(
+        torch, ops, cuda_kernels, dev, "pointnet2_part_seg_msg", 3),
+        "pointnet2_part_seg_ssg": serve_partseg(
+            torch, ops, cuda_kernels, dev, "pointnet2_part_seg_ssg", 1)}
     trained = train(torch, ops, cuda_kernels, dev)
     trained_seg = train_semseg(torch, ops, cuda_kernels, dev)
     trained_knn = train(torch, ops, cuda_kernels, dev, "pointnet2_cls_knn")
+    trained_part = train_partseg(torch, ops, cuda_kernels, dev)
     # each kernel's launches on the main paths: serving fusion_cls,
-    # fusion_sem_seg, pointnet2_cls_knn and pointnet2_cls_ssg (bf16 + fp32)
-    # and one epoch of Trainer.fit of fusion_cls, fusion_sem_seg and
-    # pointnet2_cls_knn (fp32 + bf16)
-    phases = (served, semseg, *served_pn2.values(), trained, trained_seg,
-              trained_knn)
+    # fusion_sem_seg, pointnet2_cls_knn, pointnet2_cls_ssg,
+    # pointnet2_part_seg_msg and pointnet2_part_seg_ssg (bf16 + fp32) and
+    # one epoch of Trainer.fit of fusion_cls, fusion_sem_seg,
+    # pointnet2_cls_knn and pointnet2_part_seg_msg (fp32 + bf16)
+    phases = (served, semseg, *served_pn2.values(), *served_part.values(),
+              trained, trained_seg, trained_knn, trained_part)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
     kernels = kernels_line(rows, main_launches)
@@ -1947,9 +2432,11 @@ def main():
         json.dump({"card": card, "torch": torch.__version__,
                    "build_s": build_s, "kernel_checks": rows,
                    "serve": served, "serve_fusion_sem_seg": semseg,
-                   "serve_pointnet2_cls": served_pn2, "train": trained,
+                   "serve_pointnet2_cls": served_pn2,
+                   "serve_pointnet2_part_seg": served_part, "train": trained,
                    "train_pointnet2_cls_knn": trained_knn,
                    "train_fusion_sem_seg": trained_seg,
+                   "train_pointnet2_part_seg_msg": trained_part,
                    "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,15 +8,19 @@ Layout (mirrors ``mm3d_tpu``)
 -----------------------------
 ops/       plain PyTorch geometry ops, kernel wrappers, dispatch, kernel build
 csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, fused SA,
-           gather backward, fused FP tail, bilinear image sampling)
-models/    nn.Modules: layers, SetAbstraction, FeaturePropagation, image CNN,
-           fusion_cls, fusion_sem_seg, losses, registry
+           gather backward, fused FP tail, bilinear image sampling,
+           three_nn, three_interpolate)
+models/    nn.Modules: layers, SetAbstraction(Msg), FeaturePropagation, image
+           CNN, the PointNet++ classifiers and part-seg models, fusion_cls,
+           fusion_sem_seg, losses, registry
 data/      synthetic datasets, augmentation, the prefetching input pipeline
 training/  serving (``make_predictor``) and training (``Trainer``, steps,
            optimizer, schedules)
 utils/     flax weight transfer, metrics, profiling on the card
 
-The port serves and trains ``fusion_cls`` and serves ``fusion_sem_seg``.
+The port serves and trains the PointNet++ classifiers (config 2), the
+PointNet++ part-seg models (config 3), ``fusion_cls`` (config 4) and
+``fusion_sem_seg`` (config 5).
 Entry points run on the card unless the caller asks for the CPU.
 """
 

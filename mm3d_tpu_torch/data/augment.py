@@ -1,6 +1,6 @@
 """Point-cloud augmentation on the device (counterpart of
-``mm3d_tpu/data/augment.py``, the ``classification``, ``fusion_cls`` and
-``fusion_semseg`` pipelines).
+``mm3d_tpu/data/augment.py``, the ``classification``, ``partseg``,
+``fusion_cls`` and ``fusion_semseg`` pipelines).
 
 Each op is split in two: a *draw* (generator -> the op's random tensors, on
 the batch's device) and an *apply* (batch + those tensors -> the augmented
@@ -135,6 +135,8 @@ def rotate_point_cloud_z_with_calib(batch: torch.Tensor, R: torch.Tensor,
 
 _CLS_TRAIN = ("random_point_dropout", "random_scale_point_cloud",
               "shift_point_cloud")
+# part segmentation (``augment.py:177``): no point dropout
+_PARTSEG_TRAIN = ("random_scale_point_cloud", "shift_point_cloud")
 
 # name -> (draw, apply)
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
@@ -154,6 +156,7 @@ _CALIB_REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
 
 TASK_PIPELINES = {
     "classification": _CLS_TRAIN,
+    "partseg": _PARTSEG_TRAIN,
     # late fusion: the image branch never sees point coordinates, so the
     # point-only cls pipeline is safe as it is
     "fusion_cls": _CLS_TRAIN,

@@ -20,9 +20,15 @@ import torch
 
 def _as_dict(sample) -> dict:
     """A dict sample as it is; a classification sample ``(points, label)``
-    (``SyntheticModelNet``) as {"points", "label"}, the label int32."""
+    (``SyntheticModelNet``) as {"points", "label"}, the label int32; a
+    part-seg sample ``(points, cat, seg)`` (``SyntheticShapeNetPart``) as
+    {"points", "cat", "seg"}, the labels int32."""
     if isinstance(sample, dict):
         return sample
+    if len(sample) == 3:
+        points, cat, seg = sample
+        return {"points": points, "cat": np.int32(cat),
+                "seg": np.asarray(seg, np.int32)}
     points, label = sample
     return {"points": points, "label": np.int32(label)}
 
@@ -44,8 +50,9 @@ class DataPipeline:
     """Batches a map-style dataset with per-epoch shuffling and prefetch.
 
     Args:
-      dataset: supports __len__ and __getitem__(int) -> dict of arrays, or
-        a classification sample (points, label).
+      dataset: supports __len__ and __getitem__(int) -> dict of arrays, a
+        classification sample (points, label) or a part-seg sample
+        (points, cat, seg).
       batch_size: static batch size; incomplete tails are dropped so every
         step sees the same shapes.
       shuffle: reshuffle indices every epoch from ``seed``.

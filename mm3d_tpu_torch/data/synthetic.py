@@ -1,14 +1,16 @@
-"""Synthetic datasets for the fusion models (the port's own copy of the
+"""Synthetic datasets of the ported models (the port's own copy of the
 parts of ``mm3d_tpu/data/synthetic.py`` it needs).
 
-ModelNet40-shaped clouds (``SyntheticModelNet``), S3DIS-shaped indoor
-blocks (``SyntheticIndoorScene``) and their multimodal pairing with a
-rendered view and camera calibration (``SyntheticMultimodal``). Each class
-is a fixed parametric primitive composition drawn from a seeded RNG, so the
-task is learnable. Host-side numpy, deterministic in (seed, index), and
-array-for-array identical with the JAX package's generators for the same
-seed (``tests/test_torch_data.py``). The part-segmentation generator and the
-whole-room scene of the scene-eval protocol come with their slices.
+ModelNet40-shaped clouds (``SyntheticModelNet``), ShapeNetPart-shaped
+part-seg clouds (``SyntheticShapeNetPart``, with ``shapenet_part_ranges``),
+S3DIS-shaped indoor blocks (``SyntheticIndoorScene``) and their multimodal
+pairing with a rendered view and camera calibration
+(``SyntheticMultimodal``). Each class is a fixed parametric primitive
+composition drawn from a seeded RNG, so the task is learnable. Host-side
+numpy, deterministic in (seed, index), and array-for-array identical with
+the JAX package's generators for the same seed (``tests/test_torch_data.py``,
+``tests/test_torch_partseg.py``). The whole-room scene of the scene-eval
+protocol comes with its slice.
 """
 
 from __future__ import annotations
@@ -220,6 +222,100 @@ class SyntheticModelNet:
         pts /= np.max(np.linalg.norm(pts, axis=1)) + 1e-9
         out = np.concatenate([pts, nrm], -1) if self.normals else pts
         return out.astype(np.float32), label
+
+
+# -------------------------------------------------- ShapeNetPart-style seg
+
+# Category -> global part-label range, ShapeNetPart-shaped: 16 categories,
+# 50 parts, 2-6 parts a category like the real label map
+_PARTS_PER_CAT = [4, 2, 2, 4, 4, 3, 3, 2, 4, 2, 6, 2, 3, 3, 3, 3]  # sum=50
+
+
+def shapenet_part_ranges():
+    """category -> (first global part label, one past the last)."""
+    starts = np.cumsum([0] + _PARTS_PER_CAT[:-1])
+    return {c: (int(s), int(s + p)) for c, (s, p) in
+            enumerate(zip(starts, _PARTS_PER_CAT))}
+
+
+@dataclasses.dataclass
+class SyntheticShapeNetPart:
+    """ShapeNetPart-shaped part-seg set.
+
+    Sample: (points [npoints, 3(+3)], category int, seg [npoints] int in the
+    category's global part range). Each category is a stack of primitives
+    along Y, one part label each.
+    """
+
+    npoints: int = 2048
+    normals: bool = False
+    size: int = 1024
+    seed: int = 0
+    split: str = "train"
+    num_categories: int = 16
+    num_parts: int = 50
+
+    def __post_init__(self):
+        self.ranges = shapenet_part_ranges()
+        crng = np.random.RandomState(self.seed + 555)
+        self.cat_specs = []
+        for c in range(self.num_categories):
+            lo, hi = self.ranges[c]
+            parts = []
+            y = 0.0
+            for _ in range(hi - lo):
+                kind = crng.randint(len(_PRIMS))
+                params = _class_params(crng, kind)
+                parts.append({"kind": kind, "params": params,
+                              "offset": np.array([0.0, y, 0.0])})
+                y += crng.uniform(0.5, 1.0)
+            self.cat_specs.append(parts)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        rng = np.random.RandomState(
+            (self.seed * 2_000_003 + _split_offset(self.split) + index)
+            % (2**32))
+        cat = index % self.num_categories
+        lo, hi = self.ranges[cat]
+        parts = self.cat_specs[cat]
+        k = len(parts)
+        counts = np.full(k, self.npoints // k)
+        counts[: self.npoints - counts.sum()] += 1
+        pts_l, nrm_l, seg_l = [], [], []
+        for j, part in enumerate(parts):
+            p, nr = _sample_primitive(
+                rng, part["kind"], int(counts[j]),
+                _jitter_params(rng, part["kind"], part["params"]))
+            pts_l.append(p + part["offset"])
+            nrm_l.append(nr)
+            seg_l.append(np.full(int(counts[j]), lo + j, np.int32))
+        pts = np.concatenate(pts_l, 0)
+        nrm = np.concatenate(nrm_l, 0)
+        seg = np.concatenate(seg_l, 0)
+        perm = rng.permutation(self.npoints)
+        pts, nrm, seg = pts[perm], nrm[perm], seg[perm]
+        pts -= pts.mean(0, keepdims=True)
+        pts /= np.max(np.linalg.norm(pts, axis=1)) + 1e-9
+        pts += 0.004 * rng.randn(*pts.shape)
+        out = np.concatenate([pts, nrm], -1) if self.normals else pts
+        return out.astype(np.float32), cat, seg
+
+
+def partseg_request(batch: int, npoint: int = 2048, seed: int = 0) -> list:
+    """One part-seg request: ``batch`` ShapeNetPart-style test clouds of
+    ``npoint`` points and their categories one-hot, as numpy [points [B,N,3]
+    f32, onehot [B,16] f32] (the models' inputs), and their labels
+    [cat [B], seg [B,N]] int32."""
+    ds = SyntheticShapeNetPart(npoints=npoint, size=batch, seed=seed,
+                               split="test")
+    samples = [ds[i] for i in range(batch)]
+    cat = np.array([s[1] for s in samples], np.int32)
+    return [np.stack([s[0] for s in samples]),
+            np.eye(ds.num_categories, dtype=np.float32)[cat], cat,
+            np.stack([s[2] for s in samples]).astype(np.int32)]
 
 
 # ------------------------------------------------------- S3DIS-style semseg

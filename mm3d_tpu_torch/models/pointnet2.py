@@ -1,8 +1,8 @@
-"""PointNet++ blocks and the SSG classifier (counterpart of
+"""PointNet++ blocks and models (counterpart of
 ``mm3d_tpu/models/pointnet2.py``).
 
-The branches of ``SetAbstraction`` that ``fusion_cls``, ``fusion_sem_seg``
-and ``PointNet2ClsSSG`` serve and train:
+The branches of ``SetAbstraction`` that ``fusion_cls``, ``fusion_sem_seg``,
+the PointNet++ classifiers and the part-seg models serve and train:
 
 * group_all (``pointnet2.py:142-163``): dense SharedMLP + max; in bf16
   training the stack computes in f32 (the group_all guard, ``:142-154``);
@@ -16,6 +16,9 @@ and ``PointNet2ClsSSG`` serve and train:
   recentres in f32 from the f32 inputs captured before the cast
   (``:170-178,278-292``).
 
+The last two are the scale tail ``_scale_tail``, which ``SetAbstractionMsg``
+(``:303-413``, project-first) runs once a scale after one shared FPS.
+
 ``FeaturePropagation`` (``:416-513``), the FP decoder block of the dense
 trunk, project-first:
 
@@ -27,15 +30,17 @@ trunk, project-first:
   gather-backward kernel), skip, bias, BN, relu. Training takes it;
 * M == 1 broadcasts the single sparse row.
 
-``PointNet2ClsSSG`` (``:519-554``) is BASELINE config 2
+Models: ``PointNet2ClsSSG`` (``:519-554``) is BASELINE config 2
 (``pointnet2_cls_ssg``) and, with ``knn=True``, the kNN variant
-``pointnet2_cls_knn``.
+``pointnet2_cls_knn``; ``PointNet2PartSegMSG`` (``:636-675``) is config 3
+(``pointnet2_part_seg_msg``) and ``PointNet2PartSegSSG`` (``:595-633``) its
+SSG twin.
 
 Train or eval is the module's ``training`` flag. The dtype casts sit where
 the JAX module puts them. Still to be ported in later slices: the
-point-shard branches (``:183-230``, ``:470-478``), the ``MM3D_BF16_DEBUG``
-knob (``:30-36``), ``project_first=False``, ``SetAbstractionMsg`` and the
-other model tops.
+point-shard branches (``:183-230``, ``:319-331``, ``:356-368``,
+``:470-478``), the ``MM3D_BF16_DEBUG`` knob (``:30-36``),
+``project_first=False`` (``:393-405``) and the other model tops.
 """
 
 from __future__ import annotations
@@ -97,6 +102,74 @@ def _fps_start(train: bool, xyz: torch.Tensor,
     return 0
 
 
+def _concat_points(xyz: torch.Tensor, feats: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """[xyz, feats] promoted like ``jnp.concatenate`` (f32 xyz with bf16
+    features gives f32), or xyz alone."""
+    if feats is None:
+        return xyz
+    ct = torch.promote_types(xyz.dtype, feats.dtype)
+    return torch.cat([xyz.to(ct), feats.to(ct)], dim=-1)
+
+
+def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
+                kernel: torch.Tensor, bias: torch.Tensor, bn: BatchNorm,
+                rest: Optional[SharedMLP], radius: Optional[float],
+                nsample: int, mlp: Sequence[int], dtype, dt, train: bool,
+                bn_momentum: float, knn: bool = False) -> torch.Tensor:
+    """One grouping scale of a project-first SA block -> [B,S,C_last]:
+    the tail ``SetAbstraction`` runs once and ``SetAbstractionMsg`` once a
+    scale (``pointnet2.py:232-300,338-392``).
+
+    ``cat`` [B,N,3+D], ``kernel`` [3+D,C1] and ``bias`` are the f32
+    originals; ``dtype`` is the block's dtype, ``dt`` its compute dtype
+    after the bf16 training guard. Eval with a 3-layer MLP takes the fused
+    kernel (``_want_fused_sa``, or ``_want_fused_sa_idx`` for a kNN block):
+    BN folds to an affine map, so neighbour selection, gather, MLP and max
+    run as one launch with no [B,S,K,C] tensor (a kNN block selects first,
+    in PyTorch, as JAX does in XLA). Otherwise the ball-query kernel or
+    ``knn_point``, the gather (whose backward is the gather-backward
+    kernel), BN, relu, the rest of the MLP and the max; bf16 training
+    recentres in f32 from the f32 originals (``gathered - cterm`` cancels
+    two O(1) terms, and in bf16 that leaves ~5 bits of the local
+    geometry)."""
+    cat32, kernel32, bias32 = cat, kernel, bias
+    if dt is not None:
+        cat, kernel, bias = cat.to(dt), kernel.to(dt), bias.to(dt)
+    if (_want_fused_sa_idx(train, mlp, dtype, knn, nsample) if knn
+            else _want_fused_sa(train, mlp, dtype)):
+        pre = torch.matmul(cat, kernel)  # [B,N,C1]
+        cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
+        A, C = bn.fold()
+        (w1, b1), (w2, b2) = rest.fold()
+        pre, cbias = pre * A, (bias - cterm) * A + C
+        if knn:
+            idx = ops.knn_point(nsample, xyz, new_xyz)
+            return ops.fused_sa_idx(nsample, idx, pre, cbias, w1, b1, w2, b2)
+        return ops.fused_sa(radius, nsample, xyz, new_xyz, pre, cbias, w1,
+                            b1, w2, b2)
+
+    if knn:
+        idx = ops.knn_point(nsample, xyz, new_xyz)
+    else:
+        idx = ops.query_ball_point(radius, nsample, xyz, new_xyz)
+    if dt is not None and train:
+        pre32 = torch.matmul(cat32.float(), kernel32.float())
+        ct32 = torch.matmul(new_xyz.float(), kernel32[:3].float())
+        gathered = ops.index_points(pre32, idx)  # [B,S,K,C1] f32
+        h = (gathered - ct32[:, :, None, :] + bias32.float()).to(dt)
+    else:
+        pre = torch.matmul(cat, kernel)  # [B,N,C1]
+        cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
+        gathered = ops.index_points(pre, idx)  # [B,S,K,C1]
+        h = gathered - cterm[:, :, None, :] + bias
+    f32 = dt is None
+    h = torch.relu(bn(h, momentum=bn_momentum, f32=f32))
+    if rest is not None:
+        h = rest(h, bn_momentum, f32=f32)
+    return h.amax(dim=2)
+
+
 class SetAbstraction(nn.Module):
     """Single-scale grouping SA block, project-first form.
 
@@ -154,64 +227,80 @@ class SetAbstraction(nn.Module):
             return new_xyz, self.mlp(grouped, bn_momentum, f32=f32).amax(dim=2)
 
         dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
-        if feats is None:
-            cat = xyz
-        else:
-            ct = torch.promote_types(xyz.dtype, feats.dtype)
-            cat = torch.cat([xyz.to(ct), feats.to(ct)], dim=-1)
-        kernel, bias = self.proj_kernel, self.proj_bias
-        # f32 originals, captured before the bf16 cast: the bf16-train
-        # recentering below starts from them (pointnet2.py:170-178)
-        cat32, kernel32, bias32 = cat, kernel, bias
-        if dt is not None:
-            cat, kernel, bias = cat.to(dt), kernel.to(dt), bias.to(dt)
         fps_idx = ops.farthest_point_sample(
             xyz, self.npoint, _fps_start(train, xyz, fps_generator))
         new_xyz = ops.index_points(xyz, fps_idx)
+        out = _scale_tail(
+            xyz, new_xyz, _concat_points(xyz, feats), self.proj_kernel,
+            self.proj_bias, self.proj_bn, self.mlp_rest, self.radius,
+            self.nsample, self.mlp_widths, self.dtype, dt, train,
+            bn_momentum, self.knn)
+        return new_xyz, out
 
-        if (_want_fused_sa_idx(train, self.mlp_widths, self.dtype, self.knn,
-                               self.nsample) if self.knn
-                else _want_fused_sa(train, self.mlp_widths, self.dtype)):
-            # eval: BN folds to an affine map, so neighbour selection +
-            # gather + MLP + max run as one kernel with no [B,S,K,C] tensor
-            # (a kNN block selects first, in PyTorch, as JAX does in XLA)
-            pre = torch.matmul(cat, kernel)  # [B,N,C1]
-            cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
-            A, C = self.proj_bn.fold()
-            (w1, b1), (w2, b2) = self.mlp_rest.fold()
-            pre, cbias = pre * A, (bias - cterm) * A + C
-            if self.knn:
-                idx = ops.knn_point(self.nsample, xyz, new_xyz)
-                out = ops.fused_sa_idx(self.nsample, idx, pre, cbias, w1, b1,
-                                       w2, b2)
-            else:
-                out = ops.fused_sa(self.radius, self.nsample, xyz, new_xyz,
-                                   pre, cbias, w1, b1, w2, b2)
-            return new_xyz, out
 
-        if self.knn:
-            idx = ops.knn_point(self.nsample, xyz, new_xyz)
-        else:
-            idx = ops.query_ball_point(self.radius, self.nsample, xyz,
-                                       new_xyz)
-        if dt is not None and train:
-            # bf16 training: `gathered - cterm` cancels two O(1) terms, and
-            # in bf16 that leaves ~5 bits of the local geometry; recentre in
-            # f32 and cast after (pointnet2.py:278-292)
-            pre32 = torch.matmul(cat32.float(), kernel32.float())
-            ct32 = torch.matmul(new_xyz.float(), kernel32[:3].float())
-            gathered = ops.index_points(pre32, idx)  # [B,S,K,C1] f32
-            h = (gathered - ct32[:, :, None, :] + bias32.float()).to(dt)
-        else:
-            pre = torch.matmul(cat, kernel)  # [B,N,C1]
-            cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
-            gathered = ops.index_points(pre, idx)  # [B,S,K,C1]
-            h = gathered - cterm[:, :, None, :] + bias
-        f32 = dt is None
-        h = torch.relu(self.proj_bn(h, momentum=bn_momentum, f32=f32))
-        if self.mlp_rest is not None:
-            h = self.mlp_rest(h, bn_momentum, f32=f32)
-        return new_xyz, h.amax(dim=2)
+class SetAbstractionMsg(nn.Module):
+    """Multi-scale grouping SA block, project-first form
+    (``pointnet2.py:303-413``): one FPS shared by the scales, then for each
+    scale ``i`` its own ball query (``radius_list[i]``, ``nsample_list[i]``)
+    and MLP ``mlp_list[i]``, the scales' maxima concatenated.
+
+    Parameters follow the flax tree: ``proj_kernel_{i}`` [3+D, C1_i],
+    ``proj_bias_{i}``, ``proj_bn_{i}`` and ``mlp_rest_{i}``. Each scale runs
+    the tail of ``SetAbstraction`` (``_scale_tail``): the fused SA kernel,
+    one launch a scale, in bf16 serving; in training the ball query, the
+    gather, BN and the rest of the MLP, recentred in f32 under bf16
+    training. ``f32_train_guard`` and ``fps_generator`` as there."""
+
+    def __init__(self, npoint: int, radius_list: Sequence[float],
+                 nsample_list: Sequence[int],
+                 mlp_list: Sequence[Sequence[int]], in_channels: int = 0,
+                 dtype=None, f32_train_guard: bool = False):
+        super().__init__()
+        self.npoint = npoint
+        self.radius_list = tuple(radius_list)
+        self.nsample_list = tuple(nsample_list)
+        self.mlp_list = tuple(tuple(m) for m in mlp_list)
+        self.dtype = dtype
+        self.f32_train_guard = f32_train_guard
+        c_in = 3 + in_channels
+        for i, mlp in enumerate(self.mlp_list):
+            c1 = mlp[0]
+            self.register_parameter(f"proj_kernel_{i}",
+                                    nn.Parameter(torch.empty(c_in, c1)))
+            self.register_parameter(f"proj_bias_{i}",
+                                    nn.Parameter(torch.zeros(c1)))
+            self.add_module(f"proj_bn_{i}", BatchNorm(c1, dtype=dtype))
+            self.add_module(f"mlp_rest_{i}",
+                            SharedMLP(c1, mlp[1:], dtype=dtype)
+                            if len(mlp) > 1 else None)
+        self.init_(None)
+
+    def init_(self, g):
+        for i in range(len(self.mlp_list)):
+            k = getattr(self, f"proj_kernel_{i}")
+            lecun_normal_(k, k.shape[0], g)
+            with torch.no_grad():
+                getattr(self, f"proj_bias_{i}").zero_()
+
+    def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor],
+                bn_momentum: float = 0.1,
+                fps_generator: Optional[torch.Generator] = None):
+        """xyz [B,N,3] f32, feats [B,N,D] or None -> (new_xyz [B,S,3],
+        [B,S,sum of the scales' last widths])."""
+        train = self.training
+        dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
+        fps_idx = ops.farthest_point_sample(
+            xyz, self.npoint, _fps_start(train, xyz, fps_generator))
+        new_xyz = ops.index_points(xyz, fps_idx)
+        cat = _concat_points(xyz, feats)
+        outs = [_scale_tail(
+            xyz, new_xyz, cat, getattr(self, f"proj_kernel_{i}"),
+            getattr(self, f"proj_bias_{i}"), getattr(self, f"proj_bn_{i}"),
+            getattr(self, f"mlp_rest_{i}"), radius, nsample, mlp, self.dtype,
+            dt, train, bn_momentum)
+            for i, (radius, nsample, mlp) in enumerate(zip(
+                self.radius_list, self.nsample_list, self.mlp_list))]
+        return new_xyz, torch.cat(outs, dim=-1)
 
 
 class FeaturePropagation(nn.Module):
@@ -337,3 +426,101 @@ class PointNet2ClsSSG(nn.Module):
         _, f = self.sa3(xyz, f, bn_momentum)
         return (classification_head(self, f[:, 0], bn_momentum, det,
                                     generator), {"trans_feat": None})
+
+
+# ----------------------------------------------------------- part-seg models
+
+
+class _PartSeg(nn.Module):
+    """The part-segmentation trunk both PointNet++ part-seg models share
+    (``pointnet2.py:595-675``): sa1, sa2 (``SetAbstraction`` or
+    ``SetAbstractionMsg``), the group_all sa3, the FP decoder fp3, fp2 and
+    fp1, whose dense-side skip is [one-hot category, xyz, points], then the
+    per-point head ``head_mlp`` (128), dropout 0.5 (``drop``) and
+    ``head_out``, and the f32 log-softmax.
+
+    fp3 interpolates from sa3's single point, so it broadcasts that row
+    (``FeaturePropagation``'s M == 1 branch: no 3-NN, no fused tail). With
+    ``normal_channel`` the points carry normals, [B,N,6], and sa1 groups all
+    six channels as features, as the JAX models do."""
+
+    def __init__(self, sa1: nn.Module, sa2: nn.Module, c1: int, c2: int,
+                 fp1_mlp: Sequence[int], num_part: int, num_category: int,
+                 normal_channel: bool, dtype):
+        super().__init__()
+        self.num_part, self.num_category = num_part, num_category
+        self.normal_channel = normal_channel
+        self.dtype = dtype
+        self.sa1, self.sa2 = sa1, sa2
+        self.sa3 = SetAbstraction(in_channels=c2, mlp=(256, 512, 1024),
+                                  group_all=True, dtype=dtype)
+        self.fp3 = FeaturePropagation(c2, 1024, (256, 256), dtype=dtype)
+        self.fp2 = FeaturePropagation(c1, 256, (256, 128), dtype=dtype)
+        skip = num_category + 3 + (6 if normal_channel else 3)
+        self.fp1 = FeaturePropagation(skip, 128, fp1_mlp, dtype=dtype)
+        self.head_mlp = SharedMLP(fp1_mlp[-1], (128,), dtype=dtype)
+        self.drop = Dropout(0.5)
+        self.head_out = Dense(128, num_part, dtype)
+
+    def forward(self, points: torch.Tensor, cls_label_onehot: torch.Tensor,
+                bn_momentum: float = 0.1,
+                deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None):
+        """points [B,N,3(+3)] f32, cls_label_onehot [B,num_category] ->
+        (log_probs [B,N,num_part] f32, {"trans_feat": None}). Dropout runs
+        unless ``deterministic`` (default: not training); its masks come
+        from ``generator``. ``fps_generator`` turns on the random FPS start
+        in training."""
+        det = (not self.training) if deterministic is None else deterministic
+        B, N, _ = points.shape
+        l0_xyz = points[..., :3]
+        l0_feats = points if self.normal_channel else None
+        l1_xyz, l1_f = self.sa1(l0_xyz, l0_feats, bn_momentum, fps_generator)
+        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, bn_momentum, fps_generator)
+        l3_xyz, l3_f = self.sa3(l2_xyz, l2_f, bn_momentum)
+        l2_f = self.fp3(l2_xyz, l3_xyz, l2_f, l3_f, bn_momentum)
+        l1_f = self.fp2(l1_xyz, l2_xyz, l1_f, l2_f, bn_momentum)
+        # the one-hot in the points' dtype, concatenated in it (f32), as in
+        # the JAX models; fp1 casts the skip to its compute dtype
+        cls_tiled = cls_label_onehot[:, None, :].to(points.dtype).expand(
+            B, N, self.num_category)
+        l0_skip = torch.cat([cls_tiled, l0_xyz, points], dim=-1)
+        l0_f = self.fp1(l0_xyz, l1_xyz, l0_skip, l1_f, bn_momentum)
+        h = self.head_mlp(l0_f, bn_momentum)
+        h = self.drop(h, det, generator)
+        h = self.head_out(h)
+        return log_softmax_head(h.float()), {"trans_feat": None}
+
+
+class PointNet2PartSegSSG(_PartSeg):
+    """``pointnet2_part_seg_ssg``: the SSG encoder (``pointnet2.py:595-633``)
+    with the part-seg decoder and head."""
+
+    def __init__(self, num_part: int = 50, num_category: int = 16,
+                 normal_channel: bool = False, dtype=None):
+        d = 6 if normal_channel else 0
+        super().__init__(
+            SetAbstraction(512, 0.2, 32, d, (64, 64, 128), dtype=dtype),
+            SetAbstraction(128, 0.4, 64, 128, (128, 128, 256), dtype=dtype),
+            128, 256, (128, 128, 128), num_part, num_category,
+            normal_channel, dtype)
+
+
+class PointNet2PartSegMSG(_PartSeg):
+    """Config 3 (BASELINE.json:9), ``pointnet2_part_seg_msg``: the MSG
+    encoder (``pointnet2.py:636-675``), three scales at sa1 and two at sa2,
+    with the part-seg decoder and head."""
+
+    def __init__(self, num_part: int = 50, num_category: int = 16,
+                 normal_channel: bool = False, dtype=None):
+        d = 6 if normal_channel else 0
+        super().__init__(
+            SetAbstractionMsg(512, (0.1, 0.2, 0.4), (32, 64, 128),
+                              ((32, 32, 64), (64, 64, 128), (64, 96, 128)),
+                              d, dtype=dtype),
+            SetAbstractionMsg(128, (0.4, 0.8), (64, 128),
+                              ((128, 128, 256), (128, 196, 256)), 320,
+                              dtype=dtype),
+            320, 512, (128, 128), num_part, num_category, normal_channel,
+            dtype)

@@ -2,7 +2,9 @@
 
 Counterpart of ``mm3d_tpu/models/registry.py``. Registered: the PointNet++
 SSG classifier (``pointnet2_cls_ssg``, config 2) and its kNN variant
-(``pointnet2_cls_knn``), and the fusion configs (``fusion_cls``, config 4,
+(``pointnet2_cls_knn``), the PointNet++ part-seg models
+(``pointnet2_part_seg_msg``, config 3, and ``pointnet2_part_seg_ssg``), and
+the fusion configs (``fusion_cls``, config 4,
 and ``fusion_sem_seg``, config 5, each with its attention-head variant); the
 other configs of the JAX registry join as their modules are ported.
 """
@@ -62,6 +64,12 @@ register(ModelSpec(
     "pointnet2_cls_knn", "classification",
     lambda **kw: pn2.PointNet2ClsSSG(knn=True, **kw),
     pn.pointnet_loss, default_npoint=1024))
+register(ModelSpec(
+    "pointnet2_part_seg_ssg", "partseg", pn2.PointNet2PartSegSSG,
+    pn.pointnet_loss, default_npoint=2048))
+register(ModelSpec(
+    "pointnet2_part_seg_msg", "partseg", pn2.PointNet2PartSegMSG,
+    pn.pointnet_loss, default_npoint=2048, config_id=3))
 register(ModelSpec("fusion_cls", "fusion_cls", fu.FusionCls,
                    pn.pointnet_loss, default_npoint=1024, config_id=4))
 register(ModelSpec(

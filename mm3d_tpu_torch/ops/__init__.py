@@ -20,7 +20,7 @@ from mm3d_tpu_torch.ops.cuda_kernels import (bilinear_sample,
 from mm3d_tpu_torch.ops.dispatch import get_impl, set_impl, use_impl
 from mm3d_tpu_torch.ops.geometry import (ball_query_torch, fps_torch,
                                          index_points, interpolation_weights,
-                                         knn_point,
+                                         knn_point, sample_and_group,
                                          sample_and_group_all,
                                          square_distance, three_interpolate,
                                          three_interpolate_torch, three_nn,
@@ -36,6 +36,7 @@ __all__ = [
     "knn_point",
     "gather_backward",
     "gather_backward_torch",
+    "sample_and_group",
     "sample_and_group_all",
     "fps_torch",
     "ball_query_torch",

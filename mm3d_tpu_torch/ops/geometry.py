@@ -277,6 +277,33 @@ def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
     return cuda_kernels.three_interpolate(points, idx, weight)
 
 
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     return_fps: bool = False, fps_start_idx=0):
+    """FPS -> ball query -> gather -> recentre -> concat features
+    (``mm3d_tpu/ops/geometry.py:281-314``).
+
+    xyz [B,N,3] f32, points [B,N,D] or None -> new_xyz [B,npoint,3] and
+    new_points [B,npoint,nsample,3+D] (the recentred xyz, then the
+    features, promoted like ``jnp.concatenate``). With ``return_fps`` also
+    the un-normalised grouped xyz [B,npoint,nsample,3] and the FPS indices
+    [B,npoint], as the lineage returns them. FPS and the ball query are the
+    kernels for CUDA tensors."""
+    from mm3d_tpu_torch.ops import cuda_kernels  # imports this module
+    fps_idx = cuda_kernels.farthest_point_sample(xyz, npoint, fps_start_idx)
+    new_xyz = index_points(xyz, fps_idx)  # [B,S,3]
+    idx = cuda_kernels.query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped_xyz = index_points(xyz, idx)  # [B,S,K,3]
+    new_points = grouped_xyz - new_xyz[:, :, None, :]
+    if points is not None:
+        grouped = index_points(points, idx)
+        dt = torch.promote_types(new_points.dtype, grouped.dtype)
+        new_points = torch.cat([new_points.to(dt), grouped.to(dt)], dim=-1)
+    if return_fps:
+        return new_xyz, new_points, grouped_xyz, fps_idx
+    return new_xyz, new_points
+
+
 def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Group-all: new_xyz [B,1,3] zeros, new_points [B,1,N,3+D].

@@ -1,7 +1,8 @@
 """Trainer: epoch loop and evaluation (counterpart of
-``mm3d_tpu/training/loop.py``) for the ``classification``, ``fusion_cls``
-and ``fusion_semseg`` tasks (``TrainConfig(model="pointnet2_cls_ssg" |
-"pointnet2_cls_knn" | "fusion_cls" | "fusion_sem_seg", ...)``).
+``mm3d_tpu/training/loop.py``) for the ``classification``, ``partseg``,
+``fusion_cls`` and ``fusion_semseg`` tasks (``TrainConfig(model=
+"pointnet2_cls_ssg" | "pointnet2_cls_knn" | "pointnet2_part_seg_msg" |
+"pointnet2_part_seg_ssg" | "fusion_cls" | "fusion_sem_seg", ...)``).
 
 The steps run on the Trainer's device (``cuda`` unless the caller passes
 ``device="cpu"``); the loop schedules the lr and BN momentum per epoch,
@@ -36,6 +37,7 @@ from mm3d_tpu_torch.utils import metrics as M
 # per-task headline metric: the best-of-run value ``fit`` reports
 # (``loop.py:34-38`` of the JAX package)
 BEST_METRIC = {"classification": "instance_acc",
+               "partseg": "instance_miou",
                "fusion_cls": "instance_acc", "fusion_semseg": "miou"}
 
 
@@ -54,6 +56,8 @@ class TrainConfig:
     bn_init_momentum: float = 0.1
     normal_channel: bool = False
     num_class: int = 40
+    # partseg categories (ShapeNetPart: 16)
+    num_category: int = 16
     # fusion_semseg's classes (S3DIS: 13)
     seg_classes: int = 13
     seed: int = 0
@@ -82,11 +86,16 @@ def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
     """The task's synthetic datasets, shaped like the real ones: same class
     definitions (seed), disjoint instance streams for train and test.
     ``classification``: ModelNet-style clouds with their labels;
-    ``fusion_cls``: the same clouds and ``fusion_semseg``: S3DIS-style
-    blocks of ``cfg.npoint`` 9-dim points with per-point labels, each with
-    its rendered view and camera."""
+    ``partseg``: ShapeNetPart-style clouds with their category and
+    per-point part labels; ``fusion_cls``: the ModelNet-style clouds and
+    ``fusion_semseg``: S3DIS-style blocks of ``cfg.npoint`` 9-dim points
+    with per-point labels, each with its rendered view and camera."""
 
     def base(size, split):
+        if task == "partseg":
+            return syn.SyntheticShapeNetPart(
+                npoints=cfg.npoint, normals=cfg.normal_channel, size=size,
+                seed=cfg.seed, split=split)
         if task == "fusion_semseg":
             return syn.SyntheticIndoorScene(npoints=cfg.npoint, size=size,
                                             seed=cfg.seed, split=split)
@@ -98,7 +107,7 @@ def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
         raise ValueError(f"no synthetic datasets for task {task!r}")
 
     def mk(size, split):
-        if task == "classification":
+        if task in ("classification", "partseg"):
             return base(size, split)
         return syn.SyntheticMultimodal(base=base(size, split),
                                        hw=cfg.image_hw, seed=cfg.seed)
@@ -136,6 +145,10 @@ class Trainer:
         if self.task == "fusion_semseg":
             self.num_classes = cfg.seg_classes
             kwargs = {"num_class": cfg.seg_classes, "fusion": cfg.fusion}
+        elif self.task == "partseg":
+            self.num_classes = 50  # ShapeNetPart's parts
+            kwargs = {"num_category": cfg.num_category,
+                      "normal_channel": cfg.normal_channel}
         else:
             self.num_classes = cfg.num_class
             kwargs = {"num_class": cfg.num_class,
@@ -169,16 +182,25 @@ class Trainer:
         self.train_step = steps.make_train_step(
             self.model, self.spec.loss, self.optimizer, self.task,
             augment_names=augs, class_weights=cw, generator=self.generator,
-            fps_generator=self.fps_generator)
+            fps_generator=self.fps_generator,
+            num_category=cfg.num_category)
         self._bn_refresh_n = cfg.bn_refresh_steps
         if self._bn_refresh_n is None:
             self._bn_refresh_n = 8 if cfg.dtype == "bfloat16" else 0
         self.bn_refresh_step = (steps.make_bn_refresh_step(
             self.model, self.task, augment_names=augs,
-            generator=self.generator) if self._bn_refresh_n else None)
+            generator=self.generator, num_category=cfg.num_category)
+            if self._bn_refresh_n else None)
+        eval_kwargs = {}
+        if self.task == "partseg":
+            # each category's global part range (``loop.py:232-238``)
+            start, count = M.part_ranges(syn.shapenet_part_ranges(),
+                                         self.device)
+            eval_kwargs = {"part_start": start, "part_count": count,
+                           "max_parts": int(count.max())}
         self.eval_step = steps.make_eval_step(
             self.eval_model, self.spec.loss, self.task, self.num_classes,
-            class_weights=cw)
+            class_weights=cw, num_category=cfg.num_category, **eval_kwargs)
         self.history = []
 
     # ------------------------------------------------------------- epochs
@@ -220,6 +242,7 @@ class Trainer:
         total_correct = total_count = 0
         losses = []
         cm = None
+        ious, cats = [], []
         for batch, valid in self.test_pipe.epoch(0):
             m = self.eval_step(batch, valid)
             count = int(m["count"])
@@ -227,11 +250,22 @@ class Trainer:
             losses.append((float(m["loss"]), count))
             total_correct += int(m["correct"])
             total_count += count
-            cm = m["cm"] if cm is None else cm + m["cm"]
+            if "cm" in m:
+                cm = m["cm"] if cm is None else cm + m["cm"]
+            else:  # partseg: the valid rows' shape IoUs and categories
+                keep = m["valid"].bool()
+                ious.append(m["ious"][keep].cpu().numpy())
+                cats.append(m["cats"][keep].cpu().numpy())
         lw = sum(w for _, w in losses)
         out = {"eval_loss": (sum(l * w for l, w in losses) / lw
                              if lw else 0.0)}
-        if self.task == "fusion_semseg":
+        if self.task == "partseg":
+            out["point_acc"] = total_correct / max(total_count, 1)
+            out.update(M.partseg_metrics_host(
+                np.concatenate(ious) if ious else np.zeros(0),
+                np.concatenate(cats) if cats else np.zeros(0, np.int32),
+                self.cfg.num_category))
+        elif self.task == "fusion_semseg":
             # per point: count is valid rows x N
             out["point_acc"] = total_correct / max(total_count, 1)
             out["miou"] = float(M.iou_from_confusion(cm)[1])

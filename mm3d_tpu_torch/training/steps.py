@@ -1,17 +1,18 @@
 """Train, BN-refresh and eval steps (counterpart of
-``mm3d_tpu/training/steps.py``) for the ``classification``, ``fusion_cls``
-and ``fusion_semseg`` tasks.
+``mm3d_tpu/training/steps.py``) for the ``classification``, ``partseg``,
+``fusion_cls`` and ``fusion_semseg`` tasks.
 
 PyTorch runs eagerly, so a step is a plain function over the model and
 optimizer, which it updates in place; it returns device tensors and does
 not synchronise. The tasks differ in the inputs and the target:
 ``classification`` takes ``batch["points"]`` alone, with the point-only
-augmentations; the fusion tasks take the points, the image and the camera
-(K, R, t), with the calib-aware augmentations. The target is
-``batch["label"]`` [B] for ``classification`` and ``fusion_cls``,
-``batch["seg"]`` [B,N] for ``fusion_semseg``, whose metrics count points.
-The other tasks of the JAX package (partseg, semseg) come with the slices
-that port their models.
+augmentations; ``partseg`` takes the points and the one-hot of
+``batch["cat"]`` in the points' dtype, with the point-only augmentations;
+the fusion tasks take the points, the image and the camera (K, R, t), with
+the calib-aware augmentations. The target is ``batch["label"]`` [B] for
+``classification`` and ``fusion_cls``, ``batch["seg"]`` [B,N] for
+``partseg`` and ``fusion_semseg``, whose metrics count points. The JAX
+package's ``semseg`` task comes with the slice that ports its models.
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ from mm3d_tpu_torch.data import augment as aug
 from mm3d_tpu_torch.training.state import set_lr
 from mm3d_tpu_torch.utils import metrics as M
 
-TASKS = ("classification", "fusion_cls", "fusion_semseg")
-_LATER = {"partseg": "the FP-block slice",
-          "semseg": "the FP-block slice"}
+TASKS = ("classification", "partseg", "fusion_cls", "fusion_semseg")
+_LATER = {"semseg": "the slice that ports the PointNet++ semantic "
+                    "segmentation models"}
 
 
 def _check_task(task: str) -> None:
@@ -39,24 +40,29 @@ def _check_task(task: str) -> None:
 
 def _augmented(batch, task: str, names, generator):
     """(points, R) of the batch after the named augmentations; R is None
-    for ``classification``, which has no camera."""
+    for the point-only tasks, which have no camera."""
     points, R = batch["points"], batch.get("R")
     if names:
-        if task == "classification":
+        if task in ("classification", "partseg"):
             points = aug.augment_batch(generator, points, names)
         else:
             points, R = aug.augment_fusion_batch(generator, points, R, names)
     return points, R
 
 
-def _model_args(batch, task: str, points, R):
+def _model_args(batch, task: str, points, R, num_category: int):
     if task == "classification":
         return (points,)
+    if task == "partseg":
+        onehot = torch.nn.functional.one_hot(batch["cat"].long(),
+                                             num_category)
+        return (points, onehot.to(points.dtype))
     return (points, batch["image"], batch["K"], R, batch["t"])
 
 
 def _target(batch, task: str) -> torch.Tensor:
-    return batch["seg"] if task == "fusion_semseg" else batch["label"]
+    return (batch["seg"] if task in ("partseg", "fusion_semseg")
+            else batch["label"])
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,
@@ -65,9 +71,11 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
                     class_weights: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
                     fps_generator: Optional[torch.Generator] = None,
-                    deterministic: Optional[bool] = None) -> Callable:
+                    deterministic: Optional[bool] = None,
+                    num_category: int = 16) -> Callable:
     """Returns step(batch, lr, bn_momentum) -> {loss, accuracy}
-    (accuracy per cloud, or per point for ``fusion_semseg``).
+    (accuracy per cloud, or per point for ``partseg`` and
+    ``fusion_semseg``).
 
     One step: augment (draws from ``generator``), forward in train mode,
     ``loss_fn``, backward, optimizer step at ``lr``. The loss and accuracy
@@ -82,7 +90,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
         points, R = _augmented(batch, task, names, generator)
         target = _target(batch, task)
         optimizer.zero_grad(set_to_none=True)
-        log_probs, aux = model(*_model_args(batch, task, points, R),
+        log_probs, aux = model(*_model_args(batch, task, points, R,
+                                            num_category),
                                bn_momentum=bn_momentum,
                                deterministic=deterministic,
                                generator=generator,
@@ -99,8 +108,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
 
 def make_bn_refresh_step(model: torch.nn.Module, task: str,
                          augment_names: Sequence[str] = (),
-                         generator: Optional[torch.Generator] = None
-                         ) -> Callable:
+                         generator: Optional[torch.Generator] = None,
+                         num_category: int = 16) -> Callable:
     """Returns step(batch): a forward-only train-mode pass at momentum 0.5
     that moves only the BN running statistics (no gradient, parameters and
     optimizer untouched). The Trainer runs a few before each eval in bf16
@@ -113,22 +122,32 @@ def make_bn_refresh_step(model: torch.nn.Module, task: str,
     def step(batch):
         model.train()
         points, R = _augmented(batch, task, names, generator)
-        model(*_model_args(batch, task, points, R), bn_momentum=0.5,
-              generator=generator)
+        model(*_model_args(batch, task, points, R, num_category),
+              bn_momentum=0.5, generator=generator)
 
     return step
 
 
 def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
                    num_classes: int,
-                   class_weights: Optional[torch.Tensor] = None) -> Callable:
-    """Returns step(batch, valid=None) -> {loss, correct, count, cm}.
+                   class_weights: Optional[torch.Tensor] = None,
+                   num_category: int = 16,
+                   part_start: Optional[torch.Tensor] = None,
+                   part_count: Optional[torch.Tensor] = None,
+                   max_parts: int = 6) -> Callable:
+    """Returns step(batch, valid=None) -> {loss, correct, count, cm}, or for
+    ``partseg`` {loss, correct, count, ious, cats, valid}.
 
     ``valid`` is an optional [B] bool row mask: full-test-set eval pads the
     final batch with wrap-duplicates, which count nowhere, the loss
-    included. For ``fusion_semseg`` every point of a valid row counts:
-    ``count`` is valid rows x N and the confusion matrix is weighted per
-    row (``steps.py:184-196`` of the JAX package)."""
+    included. For ``partseg`` and ``fusion_semseg`` every point of a valid
+    row counts: ``count`` is valid rows x N. ``fusion_semseg``'s confusion
+    matrix is weighted per row (``steps.py:184-196`` of the JAX package).
+    ``partseg`` predicts each point's part among its category's
+    (``part_start`` / ``part_count`` [num_category], indexed by the
+    batch's ``cat``) and returns each shape's mean part IoU (``ious`` [B]),
+    its category and the row mask, which ``utils.metrics
+    .partseg_metrics_host`` reduces (``steps.py:207-222``)."""
     _check_task(task)
 
     @torch.no_grad()
@@ -141,13 +160,22 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
               if valid is None else valid.to(torch.int32))
         wm = vm.reshape((B,) + (1,) * (target.dim() - 1))
         log_probs, aux = model(*_model_args(batch, task, points,
-                                            batch.get("R")))
+                                            batch.get("R"), num_category))
+        loss = loss_fn(log_probs, target, aux, weight=class_weights,
+                       row_mask=vm)
+        count = vm.sum() * (target.numel() // max(B, 1))
+        if task == "partseg":
+            cat = batch["cat"].long()
+            ps, pc = part_start[cat], part_count[cat]
+            pred = M.masked_part_argmax(log_probs, ps, pc)
+            return {"loss": loss,
+                    "correct": ((pred == target).to(torch.int32) * wm).sum(),
+                    "count": count,
+                    "ious": M.shape_ious(pred, target, ps, pc, max_parts),
+                    "cats": batch["cat"], "valid": vm}
         pred = torch.argmax(log_probs, -1)
         hit = (pred == target).to(torch.int32) * wm
-        return {"loss": loss_fn(log_probs, target, aux, weight=class_weights,
-                                row_mask=vm),
-                "correct": hit.sum(),
-                "count": vm.sum() * (target.numel() // max(B, 1)),
+        return {"loss": loss, "correct": hit.sum(), "count": count,
                 "cm": M.confusion_matrix(pred, target, num_classes,
                                          weights=wm)}
 

@@ -3,7 +3,8 @@
 Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the eval forward
 served by ``make_predictor`` (``--mode serve``) and of one train step of
 ``steps.make_train_step`` (``--mode train``), each for ``fusion_cls``,
-``fusion_sem_seg``, ``pointnet2_cls_knn`` or ``pointnet2_cls_ssg``:
+``fusion_sem_seg``, ``pointnet2_cls_knn``, ``pointnet2_cls_ssg``,
+``pointnet2_part_seg_msg`` or ``pointnet2_part_seg_ssg``:
 
 * ``stage_times`` -- CUDA events at the start and end of each stage of the
   model, recorded by forward hooks: for ``fusion_cls`` SA1, SA2, SA3 and the
@@ -13,7 +14,9 @@ served by ``make_predictor`` (``--mode serve``) and of one train step of
   the fusion included) and the head (head MLP to log-softmax); for the
   PointNet++ classifiers SA1, SA2, SA3 and the head (fc1 to log-softmax),
   and in serving the kNN selection inside SA1 and SA2 (``knn_sa1``,
-  ``knn_sa2``, events around each ``ops.knn_point`` call);
+  ``knn_sa2``, events around each ``ops.knn_point`` call); for the part-seg
+  models SA1, SA2, SA3, FP3, FP2, FP1 and the head (head MLP to
+  log-softmax);
 * ``train_stage_times`` -- the same for the train step's forward (for
   ``fusion_sem_seg`` the head MLP is a stage of its own), plus its backward:
   an event where each stage's backward starts (a backward pre-hook, when
@@ -31,13 +34,16 @@ Run on one card from the repository root::
 
     python -m mm3d_tpu_torch.utils.profiling [--mode serve|train]
         [--dtype bfloat16|float32] [--model fusion_cls|fusion_sem_seg|
-        pointnet2_cls_knn|pointnet2_cls_ssg]
+        pointnet2_cls_knn|pointnet2_cls_ssg|pointnet2_part_seg_msg|
+        pointnet2_part_seg_ssg]
 
 Serving ``fusion_cls`` takes B=128 clouds of 1024 points with 64x64 images
 and 40 classes, the PointNet++ classifiers the same clouds without images;
 serving ``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks
 of 2048 points with their 64x64 rendered views and cameras and 13 classes;
-training B=24 of the same inputs (random seeded weights, seeded inputs;
+serving a part-seg model B=16 synthetic ShapeNetPart-style clouds of 2048
+points with their categories (16, 50 parts); training B=24 of the same
+inputs (random seeded weights, seeded inputs;
 each task's augmentations). It prints one JSON line and writes it to
 ``profile_<mode>_<model>_<dtype>.json`` in the ``--out`` directory. It fails
 without a card.
@@ -120,11 +126,15 @@ def timed_calls(owner, attr: str):
 
 
 def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
-    """The stages ``stage_times`` reads for a FusionCls, FusionSemSeg or
-    PointNet2ClsSSG."""
+    """The stages ``stage_times`` reads for a FusionCls, FusionSemSeg,
+    PointNet2ClsSSG or part-seg model."""
     def whole(m):
         return ((m, "start"), (m, "end"))
 
+    if hasattr(model, "fp3"):  # the part-seg models
+        return {**{n: whole(getattr(model, n))
+                   for n in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")},
+                "head": ((model.head_mlp, "start"), (model, "end"))}
     if not hasattr(model, "point_trunk"):  # PointNet2ClsSSG
         return {"sa1": whole(model.sa1), "sa2": whole(model.sa2),
                 "sa3": whole(model.sa3),
@@ -143,6 +153,9 @@ def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
 
 def _train_stages(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
     """The modules whose forward and backward ``train_stage_times`` marks."""
+    if hasattr(model, "fp3"):  # the part-seg models
+        return {n: getattr(model, n)
+                for n in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")}
     if not hasattr(model, "point_trunk"):  # PointNet2ClsSSG
         return {"sa1": model.sa1, "sa2": model.sa2, "sa3": model.sa3}
     pt = model.point_trunk
@@ -166,7 +179,7 @@ def train_stage_times(model: torch.nn.Module,
     ``step`` must run the model once, the backward and ``optimizer.step``
     (a step of ``steps.make_train_step`` does)."""
     stages = _train_stages(model)
-    semseg = "fp1" in stages
+    semseg = "image" in stages and "fp1" in stages  # FusionSemSeg
     marks: Dict[str, list] = {}
 
     def mark(name):
@@ -186,8 +199,10 @@ def train_stage_times(model: torch.nn.Module,
                 lambda m, a, o, name=name: mark(f"fwd_{name}_end")),
             mod.register_full_backward_pre_hook(
                 lambda m, g, name=name: mark(f"bwd_{name}"))]
-    # PointNet2ClsSSG: the head, from fc1 on, is a forward span too
-    head = None if hasattr(model, "point_trunk") else model.fc1
+    # PointNet2ClsSSG and the part-seg models: the head, from fc1 or the
+    # head MLP on, is a forward span too
+    head = (None if hasattr(model, "point_trunk")
+            else getattr(model, "head_mlp", None) or model.fc1)
     if head is not None:
         handles.append(head.register_forward_pre_hook(
             lambda m, a: mark("fwd_head_start")))
@@ -278,12 +293,14 @@ def device_kernels(call: Callable[[], object], reps: int = 10
     forty, and a window read 14x low), which then moves neither the mean
     nor the count a call. With no record lost the sum over names is the
     plain sum over ``reps``. A window in which the profiler recorded no
-    device work at all (seen on the card once in a few hundred windows) is
-    taken again, twice at most; then it raises."""
-    for _ in range(3):
+    device work at all (seen on the card once in a few hundred windows, and
+    once three windows running) is taken again after a pause that grows by
+    a quarter second each time, five times at most; then it raises."""
+    for attempt in range(6):
         events, _ = _profile(call, reps)
         if events:
             break
+        time.sleep(0.25 * (attempt + 1))
     else:
         raise RuntimeError("device_kernels: the profiler recorded no device "
                            "work")
@@ -346,19 +363,22 @@ def nontrivial_bn(model: torch.nn.Module, seed: int = 1) -> None:
 
 def _serve(model_name: str, dtype, batch: int) -> dict:
     from mm3d_tpu_torch import ops
-    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.data.synthetic import partseg_request, semseg_request
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
 
     spec = get_model(model_name)
-    ncls = 13 if model_name == "fusion_sem_seg" else 40
-    model = init_params(spec.builder(num_class=ncls), 0)
+    kw = ({} if spec.task == "partseg" else
+          {"num_class": 13 if model_name == "fusion_sem_seg" else 40})
+    model = init_params(spec.builder(**kw), 0)
     nontrivial_bn(model)
     pred = make_predictor(model_name, model.state_dict(), device="cuda",
-                          num_class=ncls, dtype=dtype)
+                          dtype=dtype, **kw)
     r = np.random.RandomState(0)
     if model_name == "fusion_sem_seg":
         arrays = semseg_request(batch)
+    elif spec.task == "partseg":
+        arrays = partseg_request(batch)[:2]  # points, one-hot
     elif spec.task == "classification":
         arrays = [_clouds(r, batch)]
     else:
@@ -383,14 +403,15 @@ def _serve(model_name: str, dtype, batch: int) -> dict:
 
 def _train(model_name: str, dtype, batch: int) -> dict:
     from mm3d_tpu_torch.data.augment import TASK_PIPELINES
-    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.data.synthetic import partseg_request, semseg_request
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import steps
     from mm3d_tpu_torch.training.state import make_optimizer
 
     spec = get_model(model_name)
     ncls = 13 if model_name == "fusion_sem_seg" else 40
-    model = init_params(spec.builder(num_class=ncls, dtype=dtype), 0).cuda()
+    kw = {} if spec.task == "partseg" else {"num_class": ncls}
+    model = init_params(spec.builder(dtype=dtype, **kw), 0).cuda()
     opt = make_optimizer(model.parameters(), "adam", 1e-4)
     step = steps.make_train_step(
         model, spec.loss, opt, spec.task,
@@ -402,6 +423,9 @@ def _train(model_name: str, dtype, batch: int) -> dict:
         arrays = dict(zip(names, semseg_request(batch)))
         arrays["seg"] = r.randint(0, ncls, arrays["points"].shape[:2]
                                   ).astype(np.int32)
+    elif spec.task == "partseg":
+        points, _, cat, seg = partseg_request(batch)
+        arrays = {"points": points, "cat": cat, "seg": seg}
     elif spec.task == "classification":
         arrays = {"points": _clouds(r, batch),
                   "label": r.randint(0, ncls, batch).astype(np.int32)}
@@ -428,13 +452,16 @@ def main(argv=None) -> int:
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
     p.add_argument("--model", choices=("fusion_cls", "fusion_sem_seg",
                                        "pointnet2_cls_knn",
-                                       "pointnet2_cls_ssg"),
+                                       "pointnet2_cls_ssg",
+                                       "pointnet2_part_seg_msg",
+                                       "pointnet2_part_seg_ssg"),
                    default="fusion_cls")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
     p.add_argument("--batch", type=int, default=None,
                    help="default: 128 serving a cloud classifier, 16 "
-                        "serving fusion_sem_seg, 24 training")
+                        "serving fusion_sem_seg or a part-seg model, 24 "
+                        "training")
     p.add_argument("--out", default="chiprun_out")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -447,7 +474,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if args.mode == "serve":
-        batch = args.batch or (16 if args.model == "fusion_sem_seg" else 128)
+        batch = args.batch or (16 if args.model == "fusion_sem_seg"
+                               or "part_seg" in args.model else 128)
         run = _serve(args.model, dtype, batch)
     else:
         batch = args.batch or 24

@@ -142,10 +142,29 @@ def _resident_fits(C1, C2, C3, K):
                for rows in (64, 128) if rows >= KR)
 
 
+# the points a block of config 3 really groups from, where they are not
+# 1,024: sa1 takes the registry's 2,048, sa2 sa1's 512 centroids
+OWN_N = {"pointnet2.py:610-616 PartSegSSG sa1": 2048,
+         "pointnet2.py:610-616 PartSegSSG sa2": 512,
+         "pointnet2.py:651-658 PartSegMSG sa1 s0": 2048,
+         "pointnet2.py:651-658 PartSegMSG sa1 s1": 2048,
+         "pointnet2.py:651-658 PartSegMSG sa1 s2": 2048,
+         "pointnet2.py:651-658 PartSegMSG sa2 s0": 512,
+         "pointnet2.py:651-658 PartSegMSG sa2 s1": 512}
+
+
 @pytest.mark.parametrize("where", sorted(ROUTED))
 def test_sa_plan_fits_every_routed_width(where):
+    """At N = 1,024 points and, for config 3's blocks, also at the N the
+    block sees: the ball-query form's plan depends on N, whose points it
+    stages in shared memory where they fit beside the tile."""
     C1, C2, C3, K = ROUTED[where]
-    plan = ck.sa_plan(C1, C2, C3, K, 512, torch.bfloat16, 1024)
+    for N in sorted({1024, OWN_N.get(where, 1024)}):
+        _check_routed_plan(C1, C2, C3, K, N)
+
+
+def _check_routed_plan(C1, C2, C3, K, N):
+    plan = ck.sa_plan(C1, C2, C3, K, 512, torch.bfloat16, N)
     assert plan.smem <= ck.SMEM_LIMIT == 232448
     assert plan.rows % 64 == 0 and plan.rows <= 128
     assert plan.KR % 16 == 0 and K <= plan.KR

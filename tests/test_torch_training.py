@@ -650,5 +650,5 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(TypeError, match="checkpoint"):
         TrainConfig(device="cpu", checkpoint=True)
-    with pytest.raises(NotImplementedError, match="partseg"):
-        steps.make_train_step(None, None, None, "partseg")
+    with pytest.raises(NotImplementedError, match="semseg"):
+        steps.make_train_step(None, None, None, "semseg")
