@@ -46,7 +46,14 @@ that goes wrong:
    SA tail (bf16 and f32) at the five MSG scales (K = 32, 64, 128 over 2,048
    points; K = 64, 128 over 512; widths up to (128,196,256)), the fused FP
    tail at FP2 and FP1 (bf16, f32), and at B=24 three_nn, three_interpolate
-   and its backward at FP2 and FP1 and the gather backward of each scale;
+   and its backward at FP2 and FP1 and the gather backward of each scale.
+   At the sem-seg tops' shapes (S3DIS-style blocks of 4,096 points), each
+   timed: FPS 4,096 -> 1,024 (and the three levels below it, untimed), the
+   ball query and the ball-query fused SA tail (bf16 and f32, with its tile
+   plan) at sa1 of pointnet2_sem_seg and of pointnet2_sem_seg_msg, the fused
+   FP tail at FP1 (M = 1,024 over N = 4,096) and FP4 (M = 16 over N = 64),
+   each with its launch plan, and at B=24 three_nn, three_interpolate and
+   its backward at FP1 and the gather backward of sa1's gather;
 3. serves fusion_cls through ``make_predictor`` at full width (B=128 clouds
    of 1024 points, 64x64 images, 40 classes, random seeded weights) in bf16
    and fp32: 3 requests each with the launch counts reset just before, then
@@ -73,6 +80,21 @@ that goes wrong:
    FP tail twice), fp32 kernels-vs-plain parity, bf16-vs-fp32 agreement of
    the category-masked argmax per point, ms per forward, clouds/s and
    points/s; pointnet2_part_seg_ssg the same with one request per dtype;
+3e. serves config 1 and the PointNet tops, which launch no kernel (checked):
+   pointnet_cls at B=128 unit-sphere clouds of 1,024 points, 40 classes, 3
+   requests in bf16 and fp32 (as 3c); pointnet_part_seg and
+   pointnet_part_seg_lineage at B=16 x 2,048 (as 3d, 1 request);
+   pointnet_sem_seg at B=16 S3DIS-style blocks of 4,096 9-dim points, 13
+   classes, 1 request: shapes, finiteness, normalisation, bf16-vs-fp32
+   agreement (per cloud, or per point, category-masked for part-seg), ms
+   per forward, clouds/s and peak memory;
+3f. serves pointnet2_sem_seg (B=16 x 4,096, 3 requests a dtype),
+   pointnet2_sem_seg_msg (1 request) and pointnet2_cls_msg (B=128 x 1,024,
+   1 request) the same way: the launches per forward (sem-seg: FPS four
+   times, bf16 the fused SA tail a scale, fp32 the ball query a scale, the
+   fused FP tail four times; cls_msg: FPS twice and six scales), fp32
+   kernels-vs-plain parity, bf16-vs-fp32 agreement, ms, clouds/s,
+   points/s and peak memory;
 4. trains fusion_cls at full width (B=24 clouds, the trainer's default), in
    fp32 with TF32 off and then in bf16 mixed precision: one step on the
    kernel path against one on the plain path from the same state and batch
@@ -102,6 +124,17 @@ that goes wrong:
    an eval forward, ten steps on one batch, step time, clouds/s, points/s,
    peak memory and one short epoch of ``Trainer.fit`` ending in an eval
    with its instance and class mIoU;
+4e. trains pointnet_cls (config 1) as phase 4 does (B=24 clouds): no
+   kernel launch a step, the feature-transform regulariser's term finite,
+   ten steps on one batch, step time, clouds/s, peak memory and one epoch
+   of ``Trainer.fit``;
+4f. trains pointnet2_sem_seg as phase 4d does (B=24 blocks of 4,096 points,
+   the Z rotation, dropout 0.5): the kernel step against the deterministic
+   plain step, the launches of one step (FPS and the ball query four times,
+   three_nn and three_interpolate four times, the gather backward eight
+   times), of a BN refresh and of an eval forward, ten steps on one batch,
+   step time, points/s, peak memory and one short epoch of
+   ``Trainer.fit`` ending in an eval with its mIoU;
 5. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -132,6 +165,12 @@ SEG_TRAIN_SIZE, SEG_TEST_SIZE = 72, 24
 # TrainConfig's batch, one short epoch of 3 steps and 1 eval batch
 PART_BATCH, PART_NPOINT, PART_CATS, PART_PARTS = 16, 2048, 16, 50
 PART_TRAIN_SIZE, PART_TEST_SIZE = 72, 24
+# the sem-seg tops (pointnet_sem_seg, pointnet2_sem_seg and
+# pointnet2_sem_seg_msg): 16 S3DIS-style blocks of the registry's 4,096
+# 9-dim points a request, 13 classes; training pointnet2_sem_seg at
+# TrainConfig's batch, one short epoch of 3 steps and 1 eval batch
+SCENE_BATCH, SCENE_NPOINT = 16, 4096
+SCENE_TRAIN_SIZE, SCENE_TEST_SIZE = 72, 24
 # H100 SXM published peaks (NVIDIA H100 data sheet):
 # device memory rate, dense bf16 tensor-core rate, f32 CUDA-core rate
 PEAK_BYTES_S = 3.35e12
@@ -944,6 +983,7 @@ def kernel_checks(torch, ops, geometry, dev):
     semseg_kernel_checks(torch, ops, dev, record)
     semseg_train_kernel_checks(torch, ops, dev, record)
     partseg_kernel_checks(torch, ops, geometry, dev, record)
+    scene_kernel_checks(torch, ops, geometry, dev, record)
     nn_edge_checks(torch, ops, dev, record)
     return rows
 
@@ -1262,6 +1302,102 @@ def partseg_kernel_checks(torch, ops, geometry, dev, record):
             torch, ops, label, gg, idx, N, True))
 
 
+def scene_sa1_scales():
+    """(model, radius, K, widths) of the sa1 scales of pointnet2_sem_seg and
+    pointnet2_sem_seg_msg, read from the port's models: 1,024 centroids
+    over 4,096 points of 3 + 9 input channels."""
+    from mm3d_tpu_torch.models import get_model
+    ssg = get_model("pointnet2_sem_seg").builder().sa1
+    msg = get_model("pointnet2_sem_seg_msg").builder().sa1
+    return ([("pointnet2_sem_seg", ssg.radius, ssg.nsample, ssg.mlp_widths)]
+            + [("pointnet2_sem_seg_msg", r, k, mlp) for r, k, mlp in zip(
+                msg.radius_list, msg.nsample_list, msg.mlp_list)])
+
+
+def scene_kernel_checks(torch, ops, geometry, dev, record):
+    """The kernels at the sem-seg tops' shapes (S3DIS-style blocks of 4,096
+    points), each against its plain twin. Serving (B=16): FPS 4,096 ->
+    1,024 (timed) and the three levels below it; the ball query and the
+    ball-query fused SA tail (bf16 and f32, timed) at sa1 of both sem-seg
+    models, each with the tile plan ``sa_plan`` gives it (the bf16
+    (32,32,64) K=32 plan keeps the 4,096 points out of shared memory); the
+    fused FP tail at FP1 (N=4,096, M=1,024, C=128) and FP4 (N=64, M=16,
+    C=256), bf16 and f32, timed, each with its ``fp_plan``. Training (B=24):
+    three_nn and three_interpolate (forward and backward) at FP1 and the
+    gather backward of sa1's gather (f32, the ball query's own indices).
+    Tolerances as at the other shapes."""
+    from mm3d_tpu_torch.data.synthetic import scene_request
+    from mm3d_tpu_torch.ops import cuda_kernels
+
+    def levels(B, seed):
+        """The block's xyz and FPS's four levels below it (the plain
+        twin): 4,096, 1,024, 256, 64 and 16 points."""
+        x = torch.from_numpy(scene_request(B, SCENE_NPOINT, seed=seed)[0]
+                             [..., :3].copy()).to(dev)
+        out = [x]
+        with ops.use_impl("torch"):
+            for S in (1024, 256, 64, 16):
+                out.append(geometry.index_points(
+                    out[-1], geometry.fps_torch(out[-1], S)))
+        return out
+
+    lv = levels(SCENE_BATCH, 50)
+    for i, (x, c) in enumerate(zip(lv, lv[1:])):
+        B, N, _ = x.shape
+        S = c.shape[1]
+        label = f"semseg B={B} N={N} npoint={S}"
+        record("fps", label, fps_entry(torch, ops, label, x, S, 0, i == 0))
+    g = np.random.RandomState(13)
+    x, cents = lv[0], lv[1]
+    B, N, S = SCENE_BATCH, SCENE_NPOINT, cents.shape[1]
+    for model, radius, K, (C1, C2, C3) in scene_sa1_scales():
+        label = f"{model} sa1 B={B} S={S} N={N} K={K} r={radius}"
+        record("ball_query", label, ball_query_entry(
+            torch, ops, geometry, label, radius, K, x, cents, True)[0])
+        base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
+        wlabel = f"{label} 12 input channels ({C1},{C2},{C3})"
+        for dtname in ("bfloat16", "float32"):
+            entry = fused_sa_entry(torch, ops, geometry, wlabel, radius, K,
+                                   x, cents, base, dtname, True)
+            entry["plan"] = cuda_kernels.sa_plan(
+                C1, C2, C3, K, S, getattr(torch, dtname), N)._asdict()
+            record("fused_sa", f"{wlabel} {dtname}", entry)
+    for name, (x1, x2, C) in {"FP1": (lv[0], lv[1], 128),
+                              "FP4": (lv[3], lv[4], 256)}.items():
+        Bx, Nx, Mx = x1.shape[0], x1.shape[1], x2.shape[1]
+        label = f"semseg {name} B={Bx} N={Nx} M={Mx} C={C}"
+        pre32 = torch.from_numpy(g.randn(Bx, Mx, C).astype(np.float32)).to(
+            dev)
+        skip32 = torch.from_numpy(g.randn(Bx, Nx, C).astype(np.float32)).to(
+            dev)
+        for dtname in ("bfloat16", "float32"):
+            entry = fused_fp_entry(torch, ops, label, x1, x2, pre32, skip32,
+                                   dtname, True)
+            es = getattr(torch, dtname).itemsize
+            entry["plan"] = cuda_kernels.fp_plan(Bx, Nx, Mx, C, es,
+                                                 1)._asdict()
+            record("fused_fp", f"{label} {dtname}", entry)
+
+    # training shapes, B=24
+    lt = levels(TRAIN_BATCH, 51)
+    B, N, M = TRAIN_BATCH, SCENE_NPOINT, lt[1].shape[1]
+    label = f"semseg FP1 B={B} N={N} M={M}"
+    entry, (d, idx) = three_nn_entry(torch, ops, label, lt[0], lt[1], True)
+    record("three_nn", label, entry)
+    three_interp_rows(
+        torch, ops, cuda_kernels, f"{label} C=128", d, idx,
+        torch.from_numpy(g.randn(B, M, 128).astype(np.float32)).to(dev),
+        torch.from_numpy(g.randn(B, N, 128).astype(np.float32)).to(dev),
+        record)
+    _, radius, K, (C1, _, _) = scene_sa1_scales()[0]
+    with ops.use_impl("torch"):
+        idx = ops.query_ball_point(radius, K, lt[0], lt[1])
+    label = f"semseg sa1 g[{B},{M},{K},{C1}] n={N} f32"
+    gg = torch.from_numpy(g.randn(B, M, K, C1).astype(np.float32)).to(dev)
+    record("gather_backward", label, gather_entry(
+        torch, ops, label, gg, idx, N, True))
+
+
 def semseg_kernel_checks(torch, ops, dev, record):
     """The fused FP tail and the bilinear sampling at fusion_sem_seg's
     serving shapes (B=16 blocks of 2048 points), against their plain twins.
@@ -1492,6 +1628,13 @@ def semseg_train_kernel_checks(torch, ops, dev, record):
 # indices of knn_point), fp32 the unfused branch (the ball-query kernel, or
 # knn_point)
 SERVE_LAUNCHES = {
+    # config 1: dense matmuls only, no geometry kernel
+    "pointnet_cls": {"bfloat16": {}, "float32": {}},
+    # three scales a block: the fused SA tail a scale (bf16) or the ball
+    # query a scale (fp32), six in all
+    "pointnet2_cls_msg": {
+        "bfloat16": {"farthest_point_sample": 2, "fused_sa": 6},
+        "float32": {"farthest_point_sample": 2, "query_ball_point": 6}},
     "fusion_cls": {
         "bfloat16": {"farthest_point_sample": 2, "fused_sa": 2},
         "float32": {"farthest_point_sample": 2, "query_ball_point": 2}},
@@ -1559,11 +1702,14 @@ def serve(torch, ops, cuda_kernels, dev, name, reqs):
 
     rates = {}
     for dtname, pred in preds.items():
+        torch.cuda.reset_peak_memory_stats(dev)
         ms = cuda_ms(torch, lambda: pred(*reqs[0]), 12, warmup=3)
-        rates[dtname] = {"forward_ms": ms, "clouds_per_s": BATCH / ms * 1e3}
+        peak = torch.cuda.max_memory_allocated(dev)
+        rates[dtname] = {"forward_ms": ms, "clouds_per_s": BATCH / ms * 1e3,
+                         "peak_memory_bytes": peak}
         print(f"serve {name} {dtname}: median forward {ms} ms, "
-              f"{rates[dtname]['clouds_per_s']} clouds/s at B={BATCH}",
-              flush=True)
+              f"{rates[dtname]['clouds_per_s']} clouds/s at B={BATCH}, "
+              f"peak memory {peak / 2**30:.3f} GiB", flush=True)
     return {"launches": launches, "launches_by_dtype": counts,
             "fp32_kernels_vs_plain": fp32_delta,
             "bf16_vs_fp32": {"argmax_agreement": agree,
@@ -1689,10 +1835,12 @@ def serve_semseg(torch, ops, cuda_kernels, dev):
             "throughput": rates}
 
 
-# launches of one part-seg serving forward: FPS at sa1 and sa2; bf16 the
-# fused SA tail a scale, fp32 the ball-query kernel a scale; the fused FP
-# tail at FP2 and FP1 (FP3 broadcasts sa3's one point)
-PARTSEG_SERVE_LAUNCHES = {
+# launches of one segmentation serving forward. Part-seg: FPS at sa1 and
+# sa2; bf16 the fused SA tail a scale, fp32 the ball-query kernel a scale;
+# the fused FP tail at FP2 and FP1 (FP3 broadcasts sa3's one point). Sem-seg:
+# FPS at sa1..sa4, the fused SA tail or the ball query a scale, the fused FP
+# tail at FP4..FP1. The PointNet models: dense matmuls only, no kernel
+SEG_SERVE_LAUNCHES = {
     "pointnet2_part_seg_msg": {
         "bfloat16": {"farthest_point_sample": 2, "fused_sa": 5,
                      "fused_fp": 2},
@@ -1702,40 +1850,66 @@ PARTSEG_SERVE_LAUNCHES = {
         "bfloat16": {"farthest_point_sample": 2, "fused_sa": 2,
                      "fused_fp": 2},
         "float32": {"farthest_point_sample": 2, "query_ball_point": 2,
-                    "fused_fp": 2}}}
+                    "fused_fp": 2}},
+    "pointnet2_sem_seg": {
+        "bfloat16": {"farthest_point_sample": 4, "fused_sa": 4,
+                     "fused_fp": 4},
+        "float32": {"farthest_point_sample": 4, "query_ball_point": 4,
+                    "fused_fp": 4}},
+    "pointnet2_sem_seg_msg": {
+        "bfloat16": {"farthest_point_sample": 4, "fused_sa": 8,
+                     "fused_fp": 4},
+        "float32": {"farthest_point_sample": 4, "query_ball_point": 8,
+                    "fused_fp": 4}},
+    "pointnet_part_seg": {"bfloat16": {}, "float32": {}},
+    "pointnet_part_seg_lineage": {"bfloat16": {}, "float32": {}},
+    "pointnet_sem_seg": {"bfloat16": {}, "float32": {}}}
 
 
-def serve_partseg(torch, ops, cuda_kernels, dev, name, nreq):
-    """A part-seg model through make_predictor at full width: B=16
+def serve_seg(torch, ops, cuda_kernels, dev, name, nreq):
+    """A segmentation model through make_predictor at full width, random
+    seeded weights, bf16 and fp32, ``nreq`` requests each. Part-seg: B=16
     ShapeNetPart-style clouds of 2,048 points and their one-hot categories,
-    random seeded weights, bf16 and fp32, ``nreq`` requests each."""
-    from mm3d_tpu_torch.data.synthetic import (partseg_request,
+    50 parts, each point's argmax among its category's parts. Sem-seg: B=16
+    S3DIS-style blocks of 4,096 9-dim points, 13 classes."""
+    from mm3d_tpu_torch.data.synthetic import (partseg_request, scene_request,
                                                shapenet_part_ranges)
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
     from mm3d_tpu_torch.utils.metrics import masked_part_argmax, part_ranges
     from mm3d_tpu_torch.utils.profiling import nontrivial_bn
 
-    B, N = PART_BATCH, PART_NPOINT
-    model = init_params(get_model(name).builder(), seed=0)
+    spec = get_model(name)
+    part = spec.task == "partseg"
+    if part:
+        B, N, ncls, kw = PART_BATCH, PART_NPOINT, PART_PARTS, {}
+        reqs = [[torch.from_numpy(a).to(dev)
+                 for a in partseg_request(B, N, seed=s)] for s in range(nreq)]
+        nargs = 2  # points, one-hot
+    else:
+        B, N, ncls = SCENE_BATCH, SCENE_NPOINT, SEG_CLASSES
+        kw = {"num_class": ncls}
+        reqs = [[torch.from_numpy(a).to(dev)
+                 for a in scene_request(B, N, seed=60 + s)]
+                for s in range(nreq)]
+        nargs = 1  # points
+    model = init_params(spec.builder(**kw), seed=0)
     nontrivial_bn(model, seed=1)
     state = model.state_dict()
     preds = {"bfloat16": make_predictor(name, state, dtype=torch.bfloat16,
-                                        device=dev),
-             "float32": make_predictor(name, state, device=dev)}
-    reqs = [[torch.from_numpy(a).to(dev)
-             for a in partseg_request(B, N, seed=s)] for s in range(nreq)]
+                                        device=dev, **kw),
+             "float32": make_predictor(name, state, device=dev, **kw)}
     start, count = part_ranges(shapenet_part_ranges(), dev)
     counts, logp = {}, {}
     for dtname, pred in preds.items():
         cuda_kernels.reset_launches()
-        logp[dtname] = [pred(*r[:2]) for r in reqs]
+        logp[dtname] = [pred(*r[:nargs]) for r in reqs]
         torch.cuda.synchronize()
         counts[dtname] = launch_counts(cuda_kernels)
         print(f"serve {name} {dtname}: {nreq} requests of B={B} x N={N}, "
               f"launches {counts[dtname]}", flush=True)
         for lp in logp[dtname]:
-            check(lp.shape == (B, N, PART_PARTS) and lp.dtype == torch.float32,
+            check(lp.shape == (B, N, ncls) and lp.dtype == torch.float32,
                   f"{name} {dtname} log-probs shape {tuple(lp.shape)} "
                   f"{lp.dtype}")
             check(bool(torch.isfinite(lp).all()), f"{name} {dtname}: "
@@ -1744,15 +1918,14 @@ def serve_partseg(torch, ops, cuda_kernels, dev, name, nreq):
             check(norm < 1e-4, f"{name} {dtname}: exp(log-probs) sums off 1 "
                                f"by {norm}")
         want = expect(cuda_kernels, **{
-            k: v * nreq
-            for k, v in PARTSEG_SERVE_LAUNCHES[name][dtname].items()})
+            k: v * nreq for k, v in SEG_SERVE_LAUNCHES[name][dtname].items()})
         check(counts[dtname] == want, f"{name} {dtname} launches "
                                       f"{counts[dtname]}, want {want}")
     launches = {k: counts["bfloat16"][k] + counts["float32"][k]
                 for k in counts["float32"]}
 
     with ops.use_impl("torch"):
-        plain = [preds["float32"](*r[:2]) for r in reqs]
+        plain = [preds["float32"](*r[:nargs]) for r in reqs]
     fp32_delta = max(float((a - b).abs().max())
                      for a, b in zip(logp["float32"], plain))
     print(f"{name} fp32 kernels path vs plain path: max|d logp| "
@@ -1760,33 +1933,43 @@ def serve_partseg(torch, ops, cuda_kernels, dev, name, nreq):
     check(fp32_delta <= 1e-4, f"{name} fp32 kernels vs plain: {fp32_delta} "
                               "> 1e-4")
 
-    # each point's part among its category's parts, as the eval takes it
-    def parts(lp, r):
+    # part-seg: each point's part among its category's parts, as the eval
+    # takes it
+    def labels(lp, r):
+        if not part:
+            return lp.argmax(-1)
         cat = r[2].long()
         return masked_part_argmax(lp, start[cat], count[cat])
 
-    a16 = torch.cat([parts(lp, r) for lp, r in zip(logp["bfloat16"], reqs)])
-    a32 = torch.cat([parts(lp, r) for lp, r in zip(logp["float32"], reqs)])
+    a16 = torch.cat([labels(lp, r) for lp, r in zip(logp["bfloat16"], reqs)])
+    a32 = torch.cat([labels(lp, r) for lp, r in zip(logp["float32"], reqs)])
     agree = float((a16 == a32).float().mean())
     bf16_delta = max(float((a - b).abs().max())
                      for a, b in zip(logp["bfloat16"], logp["float32"]))
-    print(f"{name} bf16 vs fp32: per-point category-masked argmax agreement "
-          f"{agree}, max|d logp| {bf16_delta}", flush=True)
+    what = "category-masked argmax" if part else "argmax"
+    print(f"{name} bf16 vs fp32: per-point {what} agreement {agree}, "
+          f"max|d logp| {bf16_delta}", flush=True)
     check(agree >= 0.95, f"{name} bf16 vs fp32 argmax agreement {agree} "
                          "< 0.95")
 
     rates = {}
     for dtname, pred in preds.items():
-        ms = cuda_ms(torch, lambda: pred(*reqs[0][:2]), 12, warmup=3)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(torch, lambda: pred(*reqs[0][:nargs]), 12, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
         rates[dtname] = {"forward_ms": ms, "clouds_per_s": B / ms * 1e3,
-                         "points_per_s": B * N / ms * 1e3}
+                         "points_per_s": B * N / ms * 1e3,
+                         "peak_memory_bytes": peak}
         print(f"serve {name} {dtname}: median forward {ms} ms, "
               f"{rates[dtname]['clouds_per_s']} clouds/s, "
-              f"{rates[dtname]['points_per_s']} points/s at B={B} x N={N}",
-              flush=True)
+              f"{rates[dtname]['points_per_s']} points/s at B={B} x N={N}, "
+              f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+    del preds
+    torch.cuda.empty_cache()
     return {"launches": launches, "launches_by_dtype": counts,
             "fp32_kernels_vs_plain": fp32_delta,
-            "bf16_vs_fp32": {"masked_argmax_agreement": agree,
+            "bf16_vs_fp32": {("masked_argmax_agreement" if part
+                              else "argmax_agreement"): agree,
                              "max_logp_delta": bf16_delta},
             "throughput": rates}
 
@@ -1847,14 +2030,17 @@ def step_parity(torch, label, dtype, kmodel, pmodel, mk, mp,
 # launches of one train step: the FPS and grouping of SA1 and SA2 (kNN
 # grouping is knn_point, no kernel) and the gather backward of each
 TRAIN_LAUNCHES = {
+    "pointnet_cls": {},  # config 1: dense matmuls only
     "fusion_cls": {"farthest_point_sample": 2, "query_ball_point": 2,
                    "gather_backward": 2},
     "pointnet2_cls_knn": {"farthest_point_sample": 2, "gather_backward": 2}}
 
 
 def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
-    """Training of a cloud classifier at full width (``fusion_cls``, or
-    ``pointnet2_cls_knn``), fp32 (TF32 off) then bf16."""
+    """Training of a cloud classifier at full width (``fusion_cls``,
+    ``pointnet2_cls_knn`` or ``pointnet_cls``), fp32 (TF32 off) then bf16.
+    For ``pointnet_cls`` also the feature-transform regulariser's term of
+    the stepped model, which must be finite."""
     import copy
 
     from mm3d_tpu_torch.data.augment import TASK_PIPELINES
@@ -1910,6 +2096,16 @@ def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
         label = f"train {name} {dtname}"
         res["kernel_vs_plain"] = step_parity(torch, label, dtype, kmodel,
                                              pmodel, mk, mp)
+        if name == "pointnet_cls":  # the model with a feature transform
+            from mm3d_tpu_torch.models.pointnet import (
+                feature_transform_regularizer)
+            with torch.no_grad():
+                _, aux = kmodel.eval()(batch["points"])
+            reg = float(feature_transform_regularizer(aux["trans_feat"]))
+            check(np.isfinite(reg), f"{label}: regulariser {reg}")
+            res["regularizer_term"] = 0.001 * reg
+            print(f"{label}: feature-transform regulariser {reg} (term "
+                  f"{0.001 * reg} of the loss)", flush=True)
         # (b) launches of one step, of a BN refresh and of an eval forward
         want = expect(cuda_kernels, **TRAIN_LAUNCHES[name])
         check(per_step == want, f"{label}: launches per step "
@@ -1967,7 +2163,8 @@ def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
         nsteps = trainer.train_pipe.steps_per_epoch()
         hist = trainer.history[0]
         check(nsteps == 10, f"fit: {nsteps} steps")
-        check(fit_launches["gather_backward"] == 2 * nsteps,
+        check(fit_launches["gather_backward"]
+              == TRAIN_LAUNCHES[name].get("gather_backward", 0) * nsteps,
               f"fit {label}: launches {fit_launches}")
         check(np.isfinite(hist["train"]["loss"])
               and np.isfinite(final["eval_loss"])
@@ -2113,17 +2310,25 @@ def train_semseg(torch, ops, cuda_kernels, dev):
     return out
 
 
-# launches of one pointnet2_part_seg_msg train step: FPS twice, the ball
+# launches of one segmentation train step: FPS at each SA block, the ball
 # query a scale and the gather backward of each scale's gather, the 3-NN
-# and interpolation of FP2 and FP1 and the two interpolation backwards
-PARTSEG_TRAIN_LAUNCHES = {"farthest_point_sample": 2, "query_ball_point": 5,
-                          "three_nn": 2, "three_interpolate": 2,
-                          "gather_backward": 7}
+# and interpolation of each FP block past one sparse point (pointnet2_part_
+# seg_msg: FP2 and FP1; pointnet2_sem_seg: FP4..FP1) and each
+# interpolation's (weighted) gather backward
+SEG_TRAIN_LAUNCHES = {
+    "pointnet2_part_seg_msg": {
+        "farthest_point_sample": 2, "query_ball_point": 5, "three_nn": 2,
+        "three_interpolate": 2, "gather_backward": 7},
+    "pointnet2_sem_seg": {
+        "farthest_point_sample": 4, "query_ball_point": 4, "three_nn": 4,
+        "three_interpolate": 4, "gather_backward": 8}}
 
 
-def train_partseg(torch, ops, cuda_kernels, dev):
-    """pointnet2_part_seg_msg training at full width (B=24 clouds of 2,048
-    points), fp32 (TF32 off) then bf16."""
+def train_seg(torch, ops, cuda_kernels, dev, name):
+    """Training of a segmentation model at full width, fp32 (TF32 off) then
+    bf16: pointnet2_part_seg_msg (B=24 clouds of 2,048 points, the part-seg
+    eval) or pointnet2_sem_seg (B=24 blocks of 4,096 points, the semseg
+    eval: a confusion matrix and its mIoU)."""
     import copy
 
     from mm3d_tpu_torch.data.augment import TASK_PIPELINES
@@ -2135,15 +2340,24 @@ def train_partseg(torch, ops, cuda_kernels, dev):
     from mm3d_tpu_torch.training.state import make_optimizer
     from mm3d_tpu_torch.utils.metrics import part_ranges
 
-    name = "pointnet2_part_seg_msg"
     spec = get_model(name)
-    task, names = "partseg", TASK_PIPELINES["partseg"]
-    B, N = TRAIN_BATCH, PART_NPOINT
+    task = spec.task
+    part = task == "partseg"
+    names = TASK_PIPELINES[task]
+    B = TRAIN_BATCH
+    if part:
+        N, ncls, model_kw = PART_NPOINT, PART_PARTS, {}
+        sizes = {"train_size": PART_TRAIN_SIZE, "test_size": PART_TEST_SIZE}
+    else:
+        N, ncls = SCENE_NPOINT, SEG_CLASSES
+        model_kw = {"num_class": SEG_CLASSES}
+        sizes = {"train_size": SCENE_TRAIN_SIZE,
+                 "test_size": SCENE_TEST_SIZE, "seg_classes": SEG_CLASSES}
+    train_launches = SEG_TRAIN_LAUNCHES[name]
 
     def config(**kw):
-        return TrainConfig(model=name, train_size=PART_TRAIN_SIZE,
-                           test_size=PART_TEST_SIZE, epochs=1, batch_size=B,
-                           npoint=N, **kw)
+        return TrainConfig(model=name, epochs=1, batch_size=B, npoint=N,
+                           **sizes, **kw)
 
     train_ds, _ = build_datasets(config(), task)
     batch = next(iter(DataPipeline(train_ds, B, shuffle=False,
@@ -2152,7 +2366,8 @@ def train_partseg(torch, ops, cuda_kernels, dev):
     out = {"launches": expect(cuda_kernels)}
 
     def make(dtype, seed=0):
-        return init_params(spec.builder(dtype=dtype), seed).to(dev)
+        return init_params(spec.builder(dtype=dtype, **model_kw),
+                           seed).to(dev)
 
     def stepper(model, gen_seed=7, fixed=False):
         """The train step; ``fixed``: no augmentation and no dropout, so
@@ -2220,14 +2435,15 @@ def train_partseg(torch, ops, cuda_kernels, dev):
               f"{res['kernel_vs_atomic_plain']}, atomic-order plain twice "
               f"{res['atomic_plain_vs_itself']}", flush=True)
         # (b) launches of one step, of a BN refresh and of an eval forward
-        want = expect(cuda_kernels, **PARTSEG_TRAIN_LAUNCHES)
+        want = expect(cuda_kernels, **train_launches)
         check(per_step == want, f"{label}: launches per step {per_step}, "
                                 f"want {want}")
         refresh = steps.make_bn_refresh_step(
             kmodel, task, names, torch.Generator(dev).manual_seed(3))
         evaluate = steps.make_eval_step(
-            kmodel, spec.loss, task, PART_PARTS, part_start=start,
-            part_count=count, max_parts=int(count.max()))
+            kmodel, spec.loss, task, ncls,
+            **({"part_start": start, "part_count": count,
+                "max_parts": int(count.max())} if part else {}))
         cuda_kernels.reset_launches()
         refresh(batch)
         em = evaluate(batch)
@@ -2235,14 +2451,16 @@ def train_partseg(torch, ops, cuda_kernels, dev):
         side = launch_counts(cuda_kernels)
         # the refresh: a train forward (ball queries, 3-NN, interpolation);
         # the eval: serving's launches in the model's dtype
-        serve_l = PARTSEG_SERVE_LAUNCHES[name][dtname]
+        serve_l = SEG_SERVE_LAUNCHES[name][dtname]
         check(side == expect(cuda_kernels, **{
-            k: PARTSEG_TRAIN_LAUNCHES.get(k, 0) + serve_l.get(k, 0)
+            k: train_launches.get(k, 0) + serve_l.get(k, 0)
             for k in ("farthest_point_sample", "query_ball_point", "three_nn",
                       "three_interpolate", "fused_sa", "fused_fp")}),
               f"{label}: BN refresh + eval launched {side}")
-        check(int(em["count"]) == B * N and em["ious"].shape == (B,),
-              f"{label}: eval count / ious")
+        check(int(em["count"]) == B * N
+              and (em["ious"].shape == (B,) if part
+                   else em["cm"].shape == (ncls, ncls)),
+              f"{label}: eval count / ious / confusion matrix")
         res["launches_per_step"] = per_step
         res["launches_refresh_plus_eval"] = side
         print(f"{label}: launches per step {per_step}; BN refresh + eval "
@@ -2258,7 +2476,7 @@ def train_partseg(torch, ops, cuda_kernels, dev):
         res["fixed_batch_losses"] = losses
         print(f"{label}: 10 steps on one batch, losses {losses}",
               flush=True)
-        # (e) step time at B=24 x 2048 (the full step: scale, shift,
+        # (e) step time at B=24 x N (the full step: augmentation,
         # dropout): CUDA events over 10 steps after 3 warm-ups
         step = stepper(kmodel, gen_seed=13)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2273,7 +2491,7 @@ def train_partseg(torch, ops, cuda_kernels, dev):
         del (kmodel, pmodel, amodel, bmodel, model, step, kstep, pstep,
              astep, bstep, fixed)
         # (d) the main path: one short epoch of Trainer.fit (3 steps; eval
-        # over 24 clouds; in bf16 the BN refresh before it)
+        # over 24 clouds or blocks; in bf16 the BN refresh before it)
         trainer = Trainer(config(dtype=dtname, device=str(dev)))
         cuda_kernels.reset_launches()
         final = trainer.fit()
@@ -2281,17 +2499,20 @@ def train_partseg(torch, ops, cuda_kernels, dev):
         fit_launches = launch_counts(cuda_kernels)
         nsteps = trainer.train_pipe.steps_per_epoch()
         hist = trainer.history[0]
-        check(nsteps == PART_TRAIN_SIZE // B, f"fit: {nsteps} steps")
-        check(fit_launches["gather_backward"] == 7 * nsteps
-              and fit_launches["three_nn"] >= 2 * nsteps
-              and fit_launches["three_interpolate"] >= 2 * nsteps
-              and fit_launches["fused_fp"] == 2 * (PART_TEST_SIZE // B),
+        check(nsteps == sizes["train_size"] // B, f"fit: {nsteps} steps")
+        nfp = train_launches["three_nn"]
+        check(fit_launches["gather_backward"]
+              == train_launches["gather_backward"] * nsteps
+              and fit_launches["three_nn"] >= nfp * nsteps
+              and fit_launches["three_interpolate"] >= nfp * nsteps
+              and fit_launches["fused_fp"]
+              == nfp * (sizes["test_size"] // B),
               f"fit {label}: launches {fit_launches}")
         check(np.isfinite(hist["train"]["loss"])
               and np.isfinite(final["eval_loss"])
               and 0.0 <= final["point_acc"] <= 1.0
-              and 0.0 <= final["instance_miou"] <= 1.0
-              and 0.0 <= final["class_miou"] <= 1.0,
+              and all(0.0 <= final[k] <= 1.0 for k in (
+                  ("instance_miou", "class_miou") if part else ("miou",))),
               f"fit {label}: metrics {hist} {final}")
         for k, v in fit_launches.items():
             out["launches"][k] += v
@@ -2405,21 +2626,42 @@ def main():
         for s in (30, 31, 32)]
     served_pn2 = {name: serve(torch, ops, cuda_kernels, dev, name, clouds)
                   for name in ("pointnet2_cls_knn", "pointnet2_cls_ssg")}
-    served_part = {"pointnet2_part_seg_msg": serve_partseg(
+    served_part = {"pointnet2_part_seg_msg": serve_seg(
         torch, ops, cuda_kernels, dev, "pointnet2_part_seg_msg", 3),
-        "pointnet2_part_seg_ssg": serve_partseg(
+        "pointnet2_part_seg_ssg": serve_seg(
             torch, ops, cuda_kernels, dev, "pointnet2_part_seg_ssg", 1)}
+    # 3e: config 1 and the PointNet tops (no kernel)
+    served_pn = {"pointnet_cls": serve(torch, ops, cuda_kernels, dev,
+                                       "pointnet_cls", clouds)}
+    for name in ("pointnet_part_seg", "pointnet_part_seg_lineage",
+                 "pointnet_sem_seg"):
+        served_pn[name] = serve_seg(torch, ops, cuda_kernels, dev, name, 1)
+    # 3f: the PointNet++ sem-seg models and the MSG classifier
+    served_tops = {
+        "pointnet2_sem_seg": serve_seg(torch, ops, cuda_kernels, dev,
+                                       "pointnet2_sem_seg", 3),
+        "pointnet2_sem_seg_msg": serve_seg(torch, ops, cuda_kernels, dev,
+                                           "pointnet2_sem_seg_msg", 1),
+        "pointnet2_cls_msg": serve(torch, ops, cuda_kernels, dev,
+                                   "pointnet2_cls_msg", clouds[:1])}
+    torch.cuda.empty_cache()
     trained = train(torch, ops, cuda_kernels, dev)
     trained_seg = train_semseg(torch, ops, cuda_kernels, dev)
     trained_knn = train(torch, ops, cuda_kernels, dev, "pointnet2_cls_knn")
-    trained_part = train_partseg(torch, ops, cuda_kernels, dev)
-    # each kernel's launches on the main paths: serving fusion_cls,
-    # fusion_sem_seg, pointnet2_cls_knn, pointnet2_cls_ssg,
-    # pointnet2_part_seg_msg and pointnet2_part_seg_ssg (bf16 + fp32) and
-    # one epoch of Trainer.fit of fusion_cls, fusion_sem_seg,
-    # pointnet2_cls_knn and pointnet2_part_seg_msg (fp32 + bf16)
+    trained_part = train_seg(torch, ops, cuda_kernels, dev,
+                             "pointnet2_part_seg_msg")
+    trained_pn = train(torch, ops, cuda_kernels, dev, "pointnet_cls")  # 4e
+    trained_scene = train_seg(torch, ops, cuda_kernels, dev,
+                              "pointnet2_sem_seg")  # 4f
+    # each kernel's launches on the main paths: serving every registered
+    # model but the attention-head variants (bf16 + fp32) and one epoch of
+    # Trainer.fit of fusion_cls, fusion_sem_seg, pointnet2_cls_knn,
+    # pointnet2_part_seg_msg, pointnet_cls and pointnet2_sem_seg (fp32 +
+    # bf16)
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
-              trained, trained_seg, trained_knn, trained_part)
+              *served_pn.values(), *served_tops.values(), trained,
+              trained_seg, trained_knn, trained_part, trained_pn,
+              trained_scene)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
     kernels = kernels_line(rows, main_launches)
@@ -2433,7 +2675,11 @@ def main():
                    "build_s": build_s, "kernel_checks": rows,
                    "serve": served, "serve_fusion_sem_seg": semseg,
                    "serve_pointnet2_cls": served_pn2,
-                   "serve_pointnet2_part_seg": served_part, "train": trained,
+                   "serve_pointnet2_part_seg": served_part,
+                   "serve_pointnet": served_pn,
+                   "serve_pointnet2_tops": served_tops, "train": trained,
+                   "train_pointnet_cls": trained_pn,
+                   "train_pointnet2_sem_seg": trained_scene,
                    "train_pointnet2_cls_knn": trained_knn,
                    "train_fusion_sem_seg": trained_seg,
                    "train_pointnet2_part_seg_msg": trained_part,

@@ -11,16 +11,17 @@ csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, fused SA,
            gather backward, fused FP tail, bilinear image sampling,
            three_nn, three_interpolate)
 models/    nn.Modules: layers, SetAbstraction(Msg), FeaturePropagation, image
-           CNN, the PointNet++ classifiers and part-seg models, fusion_cls,
-           fusion_sem_seg, losses, registry
+           CNN, the PointNet models, the PointNet++ classifiers, part-seg
+           and sem-seg models, fusion_cls, fusion_sem_seg, losses, registry
 data/      synthetic datasets, augmentation, the prefetching input pipeline
 training/  serving (``make_predictor``) and training (``Trainer``, steps,
            optimizer, schedules)
 utils/     flax weight transfer, metrics, profiling on the card
 
-The port serves and trains the PointNet++ classifiers (config 2), the
-PointNet++ part-seg models (config 3), ``fusion_cls`` (config 4) and
-``fusion_sem_seg`` (config 5).
+The port serves and trains every model of the JAX registry: the five
+BASELINE configs (PointNet, config 1; the PointNet++ classifier, config 2;
+PointNet++ part segmentation, config 3; ``fusion_cls``, config 4;
+``fusion_sem_seg``, config 5) and the other ten entries.
 Entry points run on the card unless the caller asks for the CPU.
 """
 

@@ -137,6 +137,8 @@ _CLS_TRAIN = ("random_point_dropout", "random_scale_point_cloud",
               "shift_point_cloud")
 # part segmentation (``augment.py:177``): no point dropout
 _PARTSEG_TRAIN = ("random_scale_point_cloud", "shift_point_cloud")
+# indoor semantic segmentation (``augment.py:178``): a rotation about Z
+_SEMSEG_TRAIN = ("rotate_point_cloud_z",)
 
 # name -> (draw, apply)
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {
@@ -160,6 +162,7 @@ TASK_PIPELINES = {
     # late fusion: the image branch never sees point coordinates, so the
     # point-only cls pipeline is safe as it is
     "fusion_cls": _CLS_TRAIN,
+    "semseg": _SEMSEG_TRAIN,
     # projective fusion: the semseg rotation must compensate the extrinsics
     "fusion_semseg": ("rotate_point_cloud_z_with_calib",),
 }

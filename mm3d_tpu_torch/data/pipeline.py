@@ -21,8 +21,10 @@ import torch
 def _as_dict(sample) -> dict:
     """A dict sample as it is; a classification sample ``(points, label)``
     (``SyntheticModelNet``) as {"points", "label"}, the label int32; a
-    part-seg sample ``(points, cat, seg)`` (``SyntheticShapeNetPart``) as
-    {"points", "cat", "seg"}, the labels int32."""
+    sem-seg sample ``(points, seg [N])`` (``SyntheticIndoorScene``) as
+    {"points", "seg"}; a part-seg sample ``(points, cat, seg)``
+    (``SyntheticShapeNetPart``) as {"points", "cat", "seg"}, the labels
+    int32."""
     if isinstance(sample, dict):
         return sample
     if len(sample) == 3:
@@ -30,6 +32,8 @@ def _as_dict(sample) -> dict:
         return {"points": points, "cat": np.int32(cat),
                 "seg": np.asarray(seg, np.int32)}
     points, label = sample
+    if np.ndim(label):
+        return {"points": points, "seg": np.asarray(label, np.int32)}
     return {"points": points, "label": np.int32(label)}
 
 
@@ -51,8 +55,8 @@ class DataPipeline:
 
     Args:
       dataset: supports __len__ and __getitem__(int) -> dict of arrays, a
-        classification sample (points, label) or a part-seg sample
-        (points, cat, seg).
+        classification sample (points, label), a sem-seg sample
+        (points, seg) or a part-seg sample (points, cat, seg).
       batch_size: static batch size; incomplete tails are dropped so every
         step sees the same shapes.
       shuffle: reshuffle indices every epoch from ``seed``.

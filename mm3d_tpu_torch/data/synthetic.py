@@ -350,6 +350,17 @@ class SyntheticIndoorScene:
         return self.size
 
 
+def scene_request(batch: int, npoint: int = 4096, seed: int = 0) -> list:
+    """One semantic-segmentation request: ``batch`` S3DIS-style test blocks
+    of ``npoint`` 9-dim points, as numpy [points [B,N,9] f32, seg [B,N]
+    int32]."""
+    ds = SyntheticIndoorScene(npoints=npoint, size=batch, seed=seed,
+                              split="test")
+    samples = [ds[i] for i in range(batch)]
+    return [np.stack([s[0] for s in samples]),
+            np.stack([s[1] for s in samples]).astype(np.int32)]
+
+
 def _gen_room(rng, n, num_classes, seed):
     """One synthetic indoor room: (xyz [n,3], rgb [n,3], seg [n],
     room_max [3]): floor, ceiling and walls, then 3-6 furniture primitives

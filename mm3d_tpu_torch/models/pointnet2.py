@@ -1,8 +1,8 @@
 """PointNet++ blocks and models (counterpart of
 ``mm3d_tpu/models/pointnet2.py``).
 
-The branches of ``SetAbstraction`` that ``fusion_cls``, ``fusion_sem_seg``,
-the PointNet++ classifiers and the part-seg models serve and train:
+The branches of ``SetAbstraction`` that ``fusion_cls``, ``fusion_sem_seg``
+and the PointNet++ classifiers, part-seg and sem-seg models serve and train:
 
 * group_all (``pointnet2.py:142-163``): dense SharedMLP + max; in bf16
   training the stack computes in f32 (the group_all guard, ``:142-154``);
@@ -32,15 +32,19 @@ trunk, project-first:
 
 Models: ``PointNet2ClsSSG`` (``:519-554``) is BASELINE config 2
 (``pointnet2_cls_ssg``) and, with ``knn=True``, the kNN variant
-``pointnet2_cls_knn``; ``PointNet2PartSegMSG`` (``:636-675``) is config 3
+``pointnet2_cls_knn``; ``PointNet2ClsMSG`` (``:557-589``) its multi-scale
+twin; ``PointNet2PartSegMSG`` (``:636-675``) is config 3
 (``pointnet2_part_seg_msg``) and ``PointNet2PartSegSSG`` (``:595-633``) its
-SSG twin.
+SSG twin; ``PointNet2SemSeg`` (``:681-721``) and ``PointNet2SemSegMSG``
+(``:724-760``) segment 9-dim indoor blocks through four SA and four FP
+blocks.
 
 Train or eval is the module's ``training`` flag. The dtype casts sit where
 the JAX module puts them. Still to be ported in later slices: the
 point-shard branches (``:183-230``, ``:319-331``, ``:356-368``,
-``:470-478``), the ``MM3D_BF16_DEBUG`` knob (``:30-36``),
-``project_first=False`` (``:393-405``) and the other model tops.
+``:470-478``), the ``MM3D_BF16_DEBUG`` knob (``:30-36``, which returns the
+dtype unchanged when unset) and ``project_first=False`` (``:142-163``,
+``:393-405``, ``:442-454``).
 """
 
 from __future__ import annotations
@@ -428,6 +432,38 @@ class PointNet2ClsSSG(nn.Module):
                                     generator), {"trans_feat": None})
 
 
+class PointNet2ClsMSG(nn.Module):
+    """``pointnet2_cls_msg`` (``pointnet2.py:557-589``): PointNet++
+    multi-scale classification, two ``SetAbstractionMsg`` blocks of three
+    scales each, the group_all sa3 and the lineage's FC head (dropout 0.4,
+    then 0.5)."""
+
+    def __init__(self, num_class: int = 40, normal_channel: bool = False,
+                 dtype=None):
+        super().__init__()
+        self.normal_channel = normal_channel
+        self.sa1 = SetAbstractionMsg(
+            512, (0.1, 0.2, 0.4), (16, 32, 128),
+            ((32, 32, 64), (64, 64, 128), (64, 96, 128)),
+            3 if normal_channel else 0, dtype=dtype)
+        self.sa2 = SetAbstractionMsg(
+            128, (0.2, 0.4, 0.8), (32, 64, 128),
+            ((64, 64, 128), (128, 128, 256), (128, 128, 256)), 320,
+            dtype=dtype)
+        self.sa3 = SetAbstraction(in_channels=640, mlp=(256, 512, 1024),
+                                  group_all=True, dtype=dtype)
+        self.fc1 = Dense(1024, 512, dtype)
+        self.bn1 = BatchNorm(512, dtype=dtype)
+        self.drop1 = Dropout(0.4)
+        self.fc2 = Dense(512, 256, dtype)
+        self.bn2 = BatchNorm(256, dtype=dtype)
+        self.drop2 = Dropout(0.5)
+        self.fc3 = Dense(256, num_class, dtype)
+
+    # the same forward: sa1, sa2, the group_all sa3, the head
+    forward = PointNet2ClsSSG.forward
+
+
 # ----------------------------------------------------------- part-seg models
 
 
@@ -524,3 +560,85 @@ class PointNet2PartSegMSG(_PartSeg):
                               dtype=dtype),
             320, 512, (128, 128), num_part, num_category, normal_channel,
             dtype)
+
+
+# ------------------------------------------------------------ semseg models
+
+
+class _SemSeg(nn.Module):
+    """The trunk both PointNet++ semantic-segmentation models share
+    (``pointnet2.py:681-760``): four SA blocks over 9-dim block features
+    (1024, 256, 64 and 16 centroids; sa1 in f32 during bf16 training), four
+    FP blocks back to the input points (FP1 with no dense-side skip), then
+    the per-point head ``head_mlp`` (128), dropout 0.5 (``drop``) and
+    ``head_out``, and the f32 log-softmax. ``widths`` are the SA blocks'
+    output channels; each FP block's skip and sparse channels follow from
+    them."""
+
+    def __init__(self, sa1, sa2, sa3, sa4, widths, num_class: int, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.sa1, self.sa2, self.sa3, self.sa4 = sa1, sa2, sa3, sa4
+        w1, w2, w3, w4 = widths
+        self.fp4 = FeaturePropagation(w3, w4, (256, 256), dtype=dtype)
+        self.fp3 = FeaturePropagation(w2, 256, (256, 256), dtype=dtype)
+        self.fp2 = FeaturePropagation(w1, 256, (256, 128), dtype=dtype)
+        self.fp1 = FeaturePropagation(0, 128, (128, 128, 128), dtype=dtype)
+        self.head_mlp = SharedMLP(128, (128,), dtype=dtype)
+        self.drop = Dropout(0.5)
+        self.head_out = Dense(128, num_class, dtype)
+
+    def forward(self, points: torch.Tensor, bn_momentum: float = 0.1,
+                deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None,
+                fps_generator: Optional[torch.Generator] = None):
+        """points [B,N,9] f32 -> (log_probs [B,N,num_class] f32,
+        {"trans_feat": None}). Dropout, ``generator`` and ``fps_generator``
+        as in ``PointNet2ClsSSG.forward``."""
+        det = (not self.training) if deterministic is None else deterministic
+        l0_xyz = points[..., :3]
+        l1_xyz, l1_f = self.sa1(l0_xyz, points, bn_momentum, fps_generator)
+        l2_xyz, l2_f = self.sa2(l1_xyz, l1_f, bn_momentum, fps_generator)
+        l3_xyz, l3_f = self.sa3(l2_xyz, l2_f, bn_momentum, fps_generator)
+        l4_xyz, l4_f = self.sa4(l3_xyz, l3_f, bn_momentum, fps_generator)
+        l3_f = self.fp4(l3_xyz, l4_xyz, l3_f, l4_f, bn_momentum)
+        l2_f = self.fp3(l2_xyz, l3_xyz, l2_f, l3_f, bn_momentum)
+        l1_f = self.fp2(l1_xyz, l2_xyz, l1_f, l2_f, bn_momentum)
+        l0_f = self.fp1(l0_xyz, l1_xyz, None, l1_f, bn_momentum)
+        h = self.head_mlp(l0_f, bn_momentum)
+        h = self.head_out(self.drop(h, det, generator))
+        return log_softmax_head(h.float()), {"trans_feat": None}
+
+
+class PointNet2SemSeg(_SemSeg):
+    """``pointnet2_sem_seg``: the SSG trunk (``pointnet2.py:681-721``)."""
+
+    def __init__(self, num_class: int = 13, dtype=None):
+        super().__init__(
+            SetAbstraction(1024, 0.1, 32, 9, (32, 32, 64), dtype=dtype,
+                           f32_train_guard=True),
+            SetAbstraction(256, 0.2, 32, 64, (64, 64, 128), dtype=dtype),
+            SetAbstraction(64, 0.4, 32, 128, (128, 128, 256), dtype=dtype),
+            SetAbstraction(16, 0.8, 32, 256, (256, 256, 512), dtype=dtype),
+            (64, 128, 256, 512), num_class, dtype)
+
+
+class PointNet2SemSegMSG(_SemSeg):
+    """``pointnet2_sem_seg_msg``: the MSG trunk (``pointnet2.py:724-760``),
+    two scales a block."""
+
+    def __init__(self, num_class: int = 13, dtype=None):
+        super().__init__(
+            SetAbstractionMsg(1024, (0.05, 0.1), (16, 32),
+                              ((16, 16, 32), (32, 32, 64)), 9, dtype=dtype,
+                              f32_train_guard=True),
+            SetAbstractionMsg(256, (0.1, 0.2), (16, 32),
+                              ((64, 64, 128), (64, 96, 128)), 96,
+                              dtype=dtype),
+            SetAbstractionMsg(64, (0.2, 0.4), (16, 32),
+                              ((128, 196, 256), (128, 196, 256)), 256,
+                              dtype=dtype),
+            SetAbstractionMsg(16, (0.4, 0.8), (16, 32),
+                              ((256, 256, 512), (256, 384, 512)), 512,
+                              dtype=dtype),
+            (96, 256, 512, 1024), num_class, dtype)

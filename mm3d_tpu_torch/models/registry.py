@@ -1,12 +1,9 @@
 """Model registry: config name -> (module builder, loss, task metadata).
 
-Counterpart of ``mm3d_tpu/models/registry.py``. Registered: the PointNet++
-SSG classifier (``pointnet2_cls_ssg``, config 2) and its kNN variant
-(``pointnet2_cls_knn``), the PointNet++ part-seg models
-(``pointnet2_part_seg_msg``, config 3, and ``pointnet2_part_seg_ssg``), and
-the fusion configs (``fusion_cls``, config 4,
-and ``fusion_sem_seg``, config 5, each with its attention-head variant); the
-other configs of the JAX registry join as their modules are ported.
+Counterpart of ``mm3d_tpu/models/registry.py``, with the same fifteen
+entries: the five BASELINE configs (``pointnet_cls`` 1,
+``pointnet2_cls_ssg`` 2, ``pointnet2_part_seg_msg`` 3, ``fusion_cls`` 4,
+``fusion_sem_seg`` 5) and the rest of the model family.
 """
 
 from __future__ import annotations
@@ -56,8 +53,14 @@ def available() -> Dict[str, ModelSpec]:
 
 
 register(ModelSpec(
+    "pointnet_cls", "classification", pn.PointNetCls, pn.pointnet_loss,
+    default_npoint=1024, config_id=1))
+register(ModelSpec(
     "pointnet2_cls_ssg", "classification", pn2.PointNet2ClsSSG,
     pn.pointnet_loss, default_npoint=1024, config_id=2))
+register(ModelSpec(
+    "pointnet2_cls_msg", "classification", pn2.PointNet2ClsMSG,
+    pn.pointnet_loss, default_npoint=1024))
 register(ModelSpec(
     # SSG topology with kNN grouping instead of the ball query; serving
     # selects in PyTorch and runs the given-index fused SA kernel
@@ -65,20 +68,39 @@ register(ModelSpec(
     lambda **kw: pn2.PointNet2ClsSSG(knn=True, **kw),
     pn.pointnet_loss, default_npoint=1024))
 register(ModelSpec(
+    "pointnet_part_seg", "partseg", pn.PointNetPartSeg, pn.pointnet_loss,
+    default_npoint=2048))
+register(ModelSpec(
+    # the lineage's skip set, onto which its part-seg checkpoints map
+    "pointnet_part_seg_lineage", "partseg", pn.PointNetPartSegLineage,
+    pn.pointnet_loss, default_npoint=2048))
+register(ModelSpec(
     "pointnet2_part_seg_ssg", "partseg", pn2.PointNet2PartSegSSG,
     pn.pointnet_loss, default_npoint=2048))
 register(ModelSpec(
     "pointnet2_part_seg_msg", "partseg", pn2.PointNet2PartSegMSG,
     pn.pointnet_loss, default_npoint=2048, config_id=3))
+register(ModelSpec(
+    "pointnet_sem_seg", "semseg", pn.PointNetSemSeg, pn.pointnet_loss,
+    default_npoint=4096))
+register(ModelSpec(
+    "pointnet2_sem_seg", "semseg", pn2.PointNet2SemSeg, pn.pointnet_loss,
+    default_npoint=4096))
+register(ModelSpec(
+    "pointnet2_sem_seg_msg", "semseg", pn2.PointNet2SemSegMSG,
+    pn.pointnet_loss, default_npoint=4096))
 register(ModelSpec("fusion_cls", "fusion_cls", fu.FusionCls,
                    pn.pointnet_loss, default_npoint=1024, config_id=4))
+# the attention entries name their head: it wins over a caller's
+# ``fusion`` (the Trainer passes ``TrainConfig.fusion``), as overrides win
+# in ``get_model``
 register(ModelSpec(
     "fusion_cls_attention", "fusion_cls",
-    lambda **kw: fu.FusionCls(fusion="attention", **kw), pn.pointnet_loss,
-    default_npoint=1024))
+    lambda **kw: fu.FusionCls(**{**kw, "fusion": "attention"}),
+    pn.pointnet_loss, default_npoint=1024))
 register(ModelSpec("fusion_sem_seg", "fusion_semseg", fu.FusionSemSeg,
                    pn.pointnet_loss, default_npoint=2048, config_id=5))
 register(ModelSpec(
     "fusion_sem_seg_attention", "fusion_semseg",
-    lambda **kw: fu.FusionSemSeg(fusion="attention", **kw), pn.pointnet_loss,
-    default_npoint=2048))
+    lambda **kw: fu.FusionSemSeg(**{**kw, "fusion": "attention"}),
+    pn.pointnet_loss, default_npoint=2048))

@@ -4,16 +4,18 @@
 the card, optionally in the bf16 serving mode (``dtype=torch.bfloat16``):
 network compute runs in bf16 while geometry (FPS, ball query, 3-NN,
 projection) stays f32, so neighbour indices are unchanged. It serves any
-registered model with the model's own inputs: the PointNet++ classifiers
-take (points) and return [B, classes]; the part-seg models
-(``pointnet2_part_seg_msg``, ``pointnet2_part_seg_ssg``) take (points
-[B, N, 3(+3)], the category one-hot [B, 16]) and return per-point part
-log-probabilities [B, N, 50], over all 50 parts (``utils.metrics
-.masked_part_argmax`` restricts a point's argmax to its category's parts);
-``fusion_cls`` and ``fusion_sem_seg`` take (points, image, K, R, t) and
-return class log-probabilities, per cloud [B, classes] or per point
-[B, N, classes]. ``agreement`` measures prediction drift between two
-predictors.
+registered model with the model's own inputs: the classifiers
+(``pointnet_cls``, ``pointnet2_cls_*``) take (points) and return
+[B, classes]; the part-seg models (``pointnet_part_seg*``,
+``pointnet2_part_seg_*``) take (points [B, N, 3(+3)], the category one-hot
+[B, 16]) and return per-point part log-probabilities [B, N, 50], over all
+50 parts (``utils.metrics.masked_part_argmax`` restricts a point's argmax
+to its category's parts); the sem-seg models (``pointnet_sem_seg``,
+``pointnet2_sem_seg*``) take (points [B, N, 9]) and return
+[B, N, classes]; ``fusion_cls`` and ``fusion_sem_seg`` take (points,
+image, K, R, t) and return class log-probabilities, per cloud
+[B, classes] or per point [B, N, classes]. ``agreement`` measures
+prediction drift between two predictors.
 
 The fp32 mode is strict fp32 only if the caller turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32`` and

@@ -1,8 +1,8 @@
 """Trainer: epoch loop and evaluation (counterpart of
-``mm3d_tpu/training/loop.py``) for the ``classification``, ``partseg``,
-``fusion_cls`` and ``fusion_semseg`` tasks (``TrainConfig(model=
-"pointnet2_cls_ssg" | "pointnet2_cls_knn" | "pointnet2_part_seg_msg" |
-"pointnet2_part_seg_ssg" | "fusion_cls" | "fusion_sem_seg", ...)``).
+``mm3d_tpu/training/loop.py``) for every registered model
+(``TrainConfig(model=name, ...)``, ``models.available()``) and its task:
+``classification``, ``partseg``, ``semseg``, ``fusion_cls`` or
+``fusion_semseg``.
 
 The steps run on the Trainer's device (``cuda`` unless the caller passes
 ``device="cpu"``); the loop schedules the lr and BN momentum per epoch,
@@ -37,7 +37,7 @@ from mm3d_tpu_torch.utils import metrics as M
 # per-task headline metric: the best-of-run value ``fit`` reports
 # (``loop.py:34-38`` of the JAX package)
 BEST_METRIC = {"classification": "instance_acc",
-               "partseg": "instance_miou",
+               "partseg": "instance_miou", "semseg": "miou",
                "fusion_cls": "instance_acc", "fusion_semseg": "miou"}
 
 
@@ -58,7 +58,7 @@ class TrainConfig:
     num_class: int = 40
     # partseg categories (ShapeNetPart: 16)
     num_category: int = 16
-    # fusion_semseg's classes (S3DIS: 13)
+    # semseg and fusion_semseg classes (S3DIS: 13)
     seg_classes: int = 13
     seed: int = 0
     train_size: int = 512
@@ -87,16 +87,17 @@ def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
     definitions (seed), disjoint instance streams for train and test.
     ``classification``: ModelNet-style clouds with their labels;
     ``partseg``: ShapeNetPart-style clouds with their category and
-    per-point part labels; ``fusion_cls``: the ModelNet-style clouds and
-    ``fusion_semseg``: S3DIS-style blocks of ``cfg.npoint`` 9-dim points
-    with per-point labels, each with its rendered view and camera."""
+    per-point part labels; ``semseg``: S3DIS-style blocks of ``cfg.npoint``
+    9-dim points with per-point labels; ``fusion_cls``: the ModelNet-style
+    clouds and ``fusion_semseg``: the S3DIS-style blocks, each with its
+    rendered view and camera."""
 
     def base(size, split):
         if task == "partseg":
             return syn.SyntheticShapeNetPart(
                 npoints=cfg.npoint, normals=cfg.normal_channel, size=size,
                 seed=cfg.seed, split=split)
-        if task == "fusion_semseg":
+        if task in ("semseg", "fusion_semseg"):
             return syn.SyntheticIndoorScene(npoints=cfg.npoint, size=size,
                                             seed=cfg.seed, split=split)
         if task in ("classification", "fusion_cls"):
@@ -107,7 +108,7 @@ def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
         raise ValueError(f"no synthetic datasets for task {task!r}")
 
     def mk(size, split):
-        if task in ("classification", "partseg"):
+        if task in ("classification", "partseg", "semseg"):
             return base(size, split)
         return syn.SyntheticMultimodal(base=base(size, split),
                                        hw=cfg.image_hw, seed=cfg.seed)
@@ -128,9 +129,6 @@ class Trainer:
                 raise ValueError(f"{name} must be one of {sorted(_DTYPES)}")
         self.spec = get_model(cfg.model)
         self.task = self.spec.task
-        if self.task not in steps.TASKS:
-            raise NotImplementedError(
-                f"Trainer: task {self.task!r} is not ported yet")
         if train_ds is None or test_ds is None:
             syn_tr, syn_te = build_datasets(cfg, self.task)
             train_ds = train_ds if train_ds is not None else syn_tr
@@ -145,6 +143,9 @@ class Trainer:
         if self.task == "fusion_semseg":
             self.num_classes = cfg.seg_classes
             kwargs = {"num_class": cfg.seg_classes, "fusion": cfg.fusion}
+        elif self.task == "semseg":
+            self.num_classes = cfg.seg_classes
+            kwargs = {"num_class": cfg.seg_classes}
         elif self.task == "partseg":
             self.num_classes = 50  # ShapeNetPart's parts
             kwargs = {"num_category": cfg.num_category,
@@ -265,7 +266,7 @@ class Trainer:
                 np.concatenate(ious) if ious else np.zeros(0),
                 np.concatenate(cats) if cats else np.zeros(0, np.int32),
                 self.cfg.num_category))
-        elif self.task == "fusion_semseg":
+        elif self.task in ("semseg", "fusion_semseg"):
             # per point: count is valid rows x N
             out["point_acc"] = total_correct / max(total_count, 1)
             out["miou"] = float(M.iou_from_confusion(cm)[1])

@@ -1,18 +1,17 @@
 """Train, BN-refresh and eval steps (counterpart of
 ``mm3d_tpu/training/steps.py``) for the ``classification``, ``partseg``,
-``fusion_cls`` and ``fusion_semseg`` tasks.
+``semseg``, ``fusion_cls`` and ``fusion_semseg`` tasks.
 
 PyTorch runs eagerly, so a step is a plain function over the model and
 optimizer, which it updates in place; it returns device tensors and does
 not synchronise. The tasks differ in the inputs and the target:
-``classification`` takes ``batch["points"]`` alone, with the point-only
-augmentations; ``partseg`` takes the points and the one-hot of
+``classification`` and ``semseg`` take ``batch["points"]`` alone, with the
+point-only augmentations; ``partseg`` takes the points and the one-hot of
 ``batch["cat"]`` in the points' dtype, with the point-only augmentations;
 the fusion tasks take the points, the image and the camera (K, R, t), with
 the calib-aware augmentations. The target is ``batch["label"]`` [B] for
 ``classification`` and ``fusion_cls``, ``batch["seg"]`` [B,N] for
-``partseg`` and ``fusion_semseg``, whose metrics count points. The JAX
-package's ``semseg`` task comes with the slice that ports its models.
+``partseg``, ``semseg`` and ``fusion_semseg``, whose metrics count points.
 """
 
 from __future__ import annotations
@@ -25,17 +24,15 @@ from mm3d_tpu_torch.data import augment as aug
 from mm3d_tpu_torch.training.state import set_lr
 from mm3d_tpu_torch.utils import metrics as M
 
-TASKS = ("classification", "partseg", "fusion_cls", "fusion_semseg")
-_LATER = {"semseg": "the slice that ports the PointNet++ semantic "
-                    "segmentation models"}
+TASKS = ("classification", "partseg", "semseg", "fusion_cls",
+         "fusion_semseg")
+# the tasks whose batches carry no camera
+_POINT_TASKS = ("classification", "partseg", "semseg")
 
 
 def _check_task(task: str) -> None:
     if task not in TASKS:
-        where = _LATER.get(task)
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet" +
-            (f"; it comes with {where}" if where else ""))
+        raise ValueError(f"unknown task {task!r}; the tasks are {TASKS}")
 
 
 def _augmented(batch, task: str, names, generator):
@@ -43,7 +40,7 @@ def _augmented(batch, task: str, names, generator):
     for the point-only tasks, which have no camera."""
     points, R = batch["points"], batch.get("R")
     if names:
-        if task in ("classification", "partseg"):
+        if task in _POINT_TASKS:
             points = aug.augment_batch(generator, points, names)
         else:
             points, R = aug.augment_fusion_batch(generator, points, R, names)
@@ -51,7 +48,7 @@ def _augmented(batch, task: str, names, generator):
 
 
 def _model_args(batch, task: str, points, R, num_category: int):
-    if task == "classification":
+    if task in ("classification", "semseg"):
         return (points,)
     if task == "partseg":
         onehot = torch.nn.functional.one_hot(batch["cat"].long(),
@@ -61,7 +58,7 @@ def _model_args(batch, task: str, points, R, num_category: int):
 
 
 def _target(batch, task: str) -> torch.Tensor:
-    return (batch["seg"] if task in ("partseg", "fusion_semseg")
+    return (batch["seg"] if task in ("partseg", "semseg", "fusion_semseg")
             else batch["label"])
 
 
@@ -74,7 +71,7 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
                     deterministic: Optional[bool] = None,
                     num_category: int = 16) -> Callable:
     """Returns step(batch, lr, bn_momentum) -> {loss, accuracy}
-    (accuracy per cloud, or per point for ``partseg`` and
+    (accuracy per cloud, or per point for ``partseg``, ``semseg`` and
     ``fusion_semseg``).
 
     One step: augment (draws from ``generator``), forward in train mode,
@@ -140,9 +137,9 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
 
     ``valid`` is an optional [B] bool row mask: full-test-set eval pads the
     final batch with wrap-duplicates, which count nowhere, the loss
-    included. For ``partseg`` and ``fusion_semseg`` every point of a valid
-    row counts: ``count`` is valid rows x N. ``fusion_semseg``'s confusion
-    matrix is weighted per row (``steps.py:184-196`` of the JAX package).
+    included. For ``partseg``, ``semseg`` and ``fusion_semseg`` every point
+    of a valid row counts: ``count`` is valid rows x N. The confusion matrix
+    is weighted per row (``steps.py:184-196`` of the JAX package).
     ``partseg`` predicts each point's part among its category's
     (``part_start`` / ``part_count`` [num_category], indexed by the
     batch's ``cat``) and returns each shape's mean part IoU (``ious`` [B]),

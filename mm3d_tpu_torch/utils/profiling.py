@@ -2,9 +2,8 @@
 
 Counterpart of ``mm3d_tpu/utils/profiling.py``. Views of the eval forward
 served by ``make_predictor`` (``--mode serve``) and of one train step of
-``steps.make_train_step`` (``--mode train``), each for ``fusion_cls``,
-``fusion_sem_seg``, ``pointnet2_cls_knn``, ``pointnet2_cls_ssg``,
-``pointnet2_part_seg_msg`` or ``pointnet2_part_seg_ssg``:
+``steps.make_train_step`` (``--mode train``), each for one of ``MODELS``
+(every registered model but the attention-head variants):
 
 * ``stage_times`` -- CUDA events at the start and end of each stage of the
   model, recorded by forward hooks: for ``fusion_cls`` SA1, SA2, SA3 and the
@@ -16,7 +15,10 @@ served by ``make_predictor`` (``--mode serve``) and of one train step of
   and in serving the kNN selection inside SA1 and SA2 (``knn_sa1``,
   ``knn_sa2``, events around each ``ops.knn_point`` call); for the part-seg
   models SA1, SA2, SA3, FP3, FP2, FP1 and the head (head MLP to
-  log-softmax);
+  log-softmax); for the PointNet++ sem-seg models SA1 to SA4, FP4 to FP1
+  and the head; for the PointNet models the input STN, the feature STN
+  and the head (its first layer to log-softmax), the rest of the encoder
+  being the total less the stages;
 * ``train_stage_times`` -- the same for the train step's forward (for
   ``fusion_sem_seg`` the head MLP is a stage of its own), plus its backward:
   an event where each stage's backward starts (a backward pre-hook, when
@@ -33,18 +35,16 @@ served by ``make_predictor`` (``--mode serve``) and of one train step of
 Run on one card from the repository root::
 
     python -m mm3d_tpu_torch.utils.profiling [--mode serve|train]
-        [--dtype bfloat16|float32] [--model fusion_cls|fusion_sem_seg|
-        pointnet2_cls_knn|pointnet2_cls_ssg|pointnet2_part_seg_msg|
-        pointnet2_part_seg_ssg]
+        [--dtype bfloat16|float32] [--model NAME]
 
 Serving ``fusion_cls`` takes B=128 clouds of 1024 points with 64x64 images
-and 40 classes, the PointNet++ classifiers the same clouds without images;
-serving ``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks
-of 2048 points with their 64x64 rendered views and cameras and 13 classes;
-serving a part-seg model B=16 synthetic ShapeNetPart-style clouds of 2048
-points with their categories (16, 50 parts); training B=24 of the same
-inputs (random seeded weights, seeded inputs;
-each task's augmentations). It prints one JSON line and writes it to
+and 40 classes, the classifiers the same clouds without images; serving
+``fusion_sem_seg`` B=16 synthetic S3DIS-style blocks of 2048 points with
+their 64x64 rendered views and cameras and 13 classes; serving a sem-seg
+model B=16 such blocks of 4096 points without the views; serving a
+part-seg model B=16 synthetic ShapeNetPart-style clouds of 2048 points
+with their categories (16, 50 parts); training B=24 of the same inputs
+(random seeded weights, seeded inputs; each task's augmentations). It prints one JSON line and writes it to
 ``profile_<mode>_<model>_<dtype>.json`` in the ``--out`` directory. It fails
 without a card.
 """
@@ -125,12 +125,44 @@ def timed_calls(owner, attr: str):
         setattr(owner, attr, fn)
 
 
+MODELS = ("fusion_cls", "fusion_sem_seg", "pointnet_cls",
+          "pointnet_part_seg", "pointnet_part_seg_lineage", "pointnet_sem_seg",
+          "pointnet2_cls_knn", "pointnet2_cls_msg", "pointnet2_cls_ssg",
+          "pointnet2_part_seg_msg", "pointnet2_part_seg_ssg",
+          "pointnet2_sem_seg", "pointnet2_sem_seg_msg")
+
+
+def _head(model: torch.nn.Module) -> torch.nn.Module:
+    """The first module of the head of a model without an image branch."""
+    for name in ("head_mlp", "fc1", "convs1"):
+        if hasattr(model, name):
+            return getattr(model, name)
+    raise ValueError(f"no head in {type(model).__name__}")
+
+
+def _stns(model: torch.nn.Module):
+    """A PointNet model's input and feature STNs, or None."""
+    enc = getattr(model, "feat", model)
+    if not hasattr(enc, "stn"):
+        return None
+    return enc.stn, enc.fstn
+
+
 def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
     """The stages ``stage_times`` reads for a FusionCls, FusionSemSeg,
-    PointNet2ClsSSG or part-seg model."""
+    PointNet, PointNet++ classifier, part-seg or sem-seg model."""
     def whole(m):
         return ((m, "start"), (m, "end"))
 
+    stns = _stns(model)
+    if stns is not None:  # the PointNet models
+        return {"stn": whole(stns[0]), "fstn": whole(stns[1]),
+                "head": ((_head(model), "start"), (model, "end"))}
+    if hasattr(model, "fp4"):  # the PointNet++ sem-seg models
+        return {**{n: whole(getattr(model, n))
+                   for n in ("sa1", "sa2", "sa3", "sa4", "fp4", "fp3", "fp2",
+                             "fp1")},
+                "head": ((model.head_mlp, "start"), (model, "end"))}
     if hasattr(model, "fp3"):  # the part-seg models
         return {**{n: whole(getattr(model, n))
                    for n in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")},
@@ -153,6 +185,12 @@ def serve_spans(model: torch.nn.Module) -> Dict[str, tuple]:
 
 def _train_stages(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
     """The modules whose forward and backward ``train_stage_times`` marks."""
+    stns = _stns(model)
+    if stns is not None:  # the PointNet models
+        return {"stn": stns[0], "fstn": stns[1]}
+    if hasattr(model, "fp4"):  # the PointNet++ sem-seg models
+        return {n: getattr(model, n) for n in ("sa1", "sa2", "sa3", "sa4",
+                                               "fp4", "fp3", "fp2", "fp1")}
     if hasattr(model, "fp3"):  # the part-seg models
         return {n: getattr(model, n)
                 for n in ("sa1", "sa2", "sa3", "fp3", "fp2", "fp1")}
@@ -199,10 +237,9 @@ def train_stage_times(model: torch.nn.Module,
                 lambda m, a, o, name=name: mark(f"fwd_{name}_end")),
             mod.register_full_backward_pre_hook(
                 lambda m, g, name=name: mark(f"bwd_{name}"))]
-    # PointNet2ClsSSG and the part-seg models: the head, from fc1 or the
-    # head MLP on, is a forward span too
-    head = (None if hasattr(model, "point_trunk")
-            else getattr(model, "head_mlp", None) or model.fc1)
+    # the models without an image branch: the head, from its first layer
+    # on, is a forward span too
+    head = None if hasattr(model, "point_trunk") else _head(model)
     if head is not None:
         handles.append(head.register_forward_pre_hook(
             lambda m, a: mark("fwd_head_start")))
@@ -363,13 +400,14 @@ def nontrivial_bn(model: torch.nn.Module, seed: int = 1) -> None:
 
 def _serve(model_name: str, dtype, batch: int) -> dict:
     from mm3d_tpu_torch import ops
-    from mm3d_tpu_torch.data.synthetic import partseg_request, semseg_request
+    from mm3d_tpu_torch.data.synthetic import (partseg_request,
+                                               scene_request, semseg_request)
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
 
     spec = get_model(model_name)
     kw = ({} if spec.task == "partseg" else
-          {"num_class": 13 if model_name == "fusion_sem_seg" else 40})
+          {"num_class": 13 if "semseg" in spec.task else 40})
     model = init_params(spec.builder(**kw), 0)
     nontrivial_bn(model)
     pred = make_predictor(model_name, model.state_dict(), device="cuda",
@@ -379,6 +417,8 @@ def _serve(model_name: str, dtype, batch: int) -> dict:
         arrays = semseg_request(batch)
     elif spec.task == "partseg":
         arrays = partseg_request(batch)[:2]  # points, one-hot
+    elif spec.task == "semseg":
+        arrays = scene_request(batch)[:1]
     elif spec.task == "classification":
         arrays = [_clouds(r, batch)]
     else:
@@ -403,13 +443,14 @@ def _serve(model_name: str, dtype, batch: int) -> dict:
 
 def _train(model_name: str, dtype, batch: int) -> dict:
     from mm3d_tpu_torch.data.augment import TASK_PIPELINES
-    from mm3d_tpu_torch.data.synthetic import partseg_request, semseg_request
+    from mm3d_tpu_torch.data.synthetic import (partseg_request,
+                                               scene_request, semseg_request)
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import steps
     from mm3d_tpu_torch.training.state import make_optimizer
 
     spec = get_model(model_name)
-    ncls = 13 if model_name == "fusion_sem_seg" else 40
+    ncls = 13 if "semseg" in spec.task else 40
     kw = {} if spec.task == "partseg" else {"num_class": ncls}
     model = init_params(spec.builder(dtype=dtype, **kw), 0).cuda()
     opt = make_optimizer(model.parameters(), "adam", 1e-4)
@@ -426,6 +467,8 @@ def _train(model_name: str, dtype, batch: int) -> dict:
     elif spec.task == "partseg":
         points, _, cat, seg = partseg_request(batch)
         arrays = {"points": points, "cat": cat, "seg": seg}
+    elif spec.task == "semseg":
+        arrays = dict(zip(("points", "seg"), scene_request(batch)))
     elif spec.task == "classification":
         arrays = {"points": _clouds(r, batch),
                   "label": r.randint(0, ncls, batch).astype(np.int32)}
@@ -450,18 +493,12 @@ def _train(model_name: str, dtype, batch: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=("serve", "train"), default="serve")
-    p.add_argument("--model", choices=("fusion_cls", "fusion_sem_seg",
-                                       "pointnet2_cls_knn",
-                                       "pointnet2_cls_ssg",
-                                       "pointnet2_part_seg_msg",
-                                       "pointnet2_part_seg_ssg"),
-                   default="fusion_cls")
+    p.add_argument("--model", choices=MODELS, default="fusion_cls")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
     p.add_argument("--batch", type=int, default=None,
                    help="default: 128 serving a cloud classifier, 16 "
-                        "serving fusion_sem_seg or a part-seg model, 24 "
-                        "training")
+                        "serving a segmentation model, 24 training")
     p.add_argument("--out", default="chiprun_out")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -474,8 +511,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip()
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     if args.mode == "serve":
-        batch = args.batch or (16 if args.model == "fusion_sem_seg"
-                               or "part_seg" in args.model else 128)
+        batch = args.batch or (16 if "seg" in args.model else 128)
         run = _serve(args.model, dtype, batch)
     else:
         batch = args.batch or 24

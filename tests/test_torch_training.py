@@ -648,7 +648,13 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Checkpointing, resume and the run-directory logger are not ported:
+    TrainConfig has no fields for them. Every task of the registry is
+    ported now, so an unknown task name is refused as unknown."""
     with pytest.raises(TypeError, match="checkpoint"):
         TrainConfig(device="cpu", checkpoint=True)
-    with pytest.raises(NotImplementedError, match="semseg"):
-        steps.make_train_step(None, None, None, "semseg")
+    for field in ("resume", "log_dir"):
+        with pytest.raises(TypeError, match=field):
+            TrainConfig(device="cpu", **{field: "x"})
+    with pytest.raises(ValueError, match="unknown task"):
+        steps.make_train_step(None, None, None, "vote_partseg")
