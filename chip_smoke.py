@@ -95,6 +95,21 @@ that goes wrong:
    fused FP tail four times; cls_msg: FPS twice and six scales), fp32
    kernels-vs-plain parity, bf16-vs-fp32 agreement, ms, clouds/s,
    points/s and peak memory;
+3g. exports fusion_cls (bf16 and fp32), pointnet2_cls_knn (bf16) and
+   fusion_sem_seg (bf16) from make_predictor at the widths of 3-3c
+   (random seeded weights) into serving artifacts (``export_serving``,
+   ``save_serving``): each graph must hold the ``mm3d::*`` operator nodes
+   of one forward's launches. Each artifact is loaded into a fresh
+   ``PredictionService``, warmed and served by ``make_server`` on
+   loopback: requests at B = the artifact's batch, batch + 72 (chunked,
+   wrap-padded) and 1, their log-probs held to make_predictor's on the
+   same chunks (fp32 max|d| <= 1e-5, bf16 argmax agreement 1.0); 4
+   concurrent clients x those 3 requests must get the serial answers bit
+   for bit; /metrics must count the requests; an oversize body must get
+   413; the launch counts while serving must be the graph's nodes a
+   forward (and all six operators must run over the phase). Prints export
+   and load + warmup seconds, the artifact's and make_predictor's ms a
+   forward (CUDA events) and the HTTP p50 latency;
 4. trains fusion_cls at full width (B=24 clouds, the trainer's default), in
    fp32 with TF32 off and then in bf16 mixed precision: one step on the
    kernel path against one on the plain path from the same state and batch
@@ -226,16 +241,18 @@ def unit_sphere_clouds(rng, B, N):
     return pts
 
 
-def request(seed):
-    """One serving request as bench.py builds it: points, image, K, R, t."""
+def request(seed, batch=None):
+    """One serving request as bench.py builds it: points, image, K, R, t
+    (``batch`` clouds, BATCH by default)."""
+    B = batch or BATCH
     r = np.random.RandomState(seed)
-    return (unit_sphere_clouds(r, BATCH, NPOINT),
-            r.rand(BATCH, *IMAGE_HW, 3).astype(np.float32),
+    return (unit_sphere_clouds(r, B, NPOINT),
+            r.rand(B, *IMAGE_HW, 3).astype(np.float32),
             np.broadcast_to(np.eye(3, dtype=np.float32) * 32,
-                            (BATCH, 3, 3)).copy(),
+                            (B, 3, 3)).copy(),
             np.broadcast_to(np.eye(3, dtype=np.float32),
-                            (BATCH, 3, 3)).copy(),
-            np.tile(np.array([0, 0, 3], np.float32), (BATCH, 1)))
+                            (B, 3, 3)).copy(),
+            np.tile(np.array([0, 0, 3], np.float32), (B, 1)))
 
 
 def cuda_ms(torch, fn, reps, warmup=2):
@@ -1974,6 +1991,243 @@ def serve_seg(torch, ops, cuda_kernels, dev, name, nreq):
             "throughput": rates}
 
 
+# phase 3g: the artifacts served through mm3d_tpu_torch.serving, each with
+# the mm3d operator nodes its graph must hold (one a kernel launch of a
+# forward, as phases 3, 3b and 3c count them)
+ARTIFACTS = (
+    ("fusion_cls", "bfloat16", SERVE_LAUNCHES["fusion_cls"]["bfloat16"]),
+    ("fusion_cls", "float32", SERVE_LAUNCHES["fusion_cls"]["float32"]),
+    ("pointnet2_cls_knn", "bfloat16",
+     SERVE_LAUNCHES["pointnet2_cls_knn"]["bfloat16"]),
+    ("fusion_sem_seg", "bfloat16",
+     {"farthest_point_sample": 2, "fused_sa": 2, "fused_fp": 2,
+      "bilinear_sample": 1}))
+# requests a served artifact gets over HTTP: one round at the artifact's
+# batch, batch + 72 (two chunks, the second wrap-padded) and 1, then
+# CLIENTS concurrent clients sending that round each, then P50_REQUESTS at
+# the artifact's batch for the latency
+EXTRA_ROWS, CLIENTS, P50_REQUESTS = 72, 4, 8
+
+
+def _post(base, arrays, timeout=300):
+    """(status, log_probs or the error body) of one /predict."""
+    import io
+    import urllib.error
+    import urllib.request
+    from mm3d_tpu_torch.serving import _npz_bytes
+
+    req = urllib.request.Request(
+        f"{base}/predict", method="POST",
+        data=_npz_bytes(**{f"arg{i}": a for i, a in enumerate(arrays)}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, np.load(io.BytesIO(resp.read()))["log_probs"]
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _get(base, route):
+    import urllib.request
+    with urllib.request.urlopen(f"{base}{route}", timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _chunked(pred, arrays, batch):
+    """make_predictor's log-probs for the chunks a fixed-batch artifact
+    runs (each of ``batch`` rows, the last wrap-padded with its first
+    row), the padding dropped."""
+    out = []
+    for lo in range(0, arrays[0].shape[0], batch):
+        chunk = [a[lo:lo + batch] for a in arrays]
+        got = chunk[0].shape[0]
+        chunk = [np.concatenate([c] + [c[:1]] * (batch - got)) for c in chunk]
+        out.append(pred(*chunk).cpu().numpy()[:got])
+    return np.concatenate(out)
+
+
+def serve_artifacts(torch, cuda_kernels, dev, card):
+    """3g: each of ARTIFACTS exported on the card from make_predictor at
+    full width (random seeded weights), saved, loaded into a fresh
+    PredictionService and served over HTTP on loopback."""
+    import tempfile
+    import threading
+    from mm3d_tpu_torch import serving
+    from mm3d_tpu_torch.data.synthetic import semseg_request
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.training.inference import export_serving, save_serving
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    def inputs(name, B, seed):
+        if name == "fusion_sem_seg":
+            return semseg_request(B, SEG_NPOINT, IMAGE_HW, seed=seed)
+        if name == "pointnet2_cls_knn":
+            return [unit_sphere_clouds(np.random.RandomState(seed), B,
+                                       NPOINT)]
+        return list(request(seed, B))
+
+    total = {k.__name__: 0 for k in cuda_kernels.KERNELS}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dtname, nodes in ARTIFACTS:
+            label = f"{name} {dtname}"
+            ncls = SEG_CLASSES if name == "fusion_sem_seg" else NUM_CLASS
+            batch = SEG_BATCH if name == "fusion_sem_seg" else BATCH
+            model = init_params(get_model(name).builder(num_class=ncls),
+                                seed=0)
+            nontrivial_bn(model, seed=1)
+            pred = make_predictor(
+                name, model.state_dict(), device=dev, num_class=ncls,
+                dtype=torch.bfloat16 if dtname == "bfloat16" else None)
+            t0 = time.perf_counter()
+            ep = export_serving(pred, inputs(name, batch, 70))
+            export_s = time.perf_counter() - t0
+            got_nodes, calls = {}, {}
+            for n in ep.graph.nodes:
+                if n.op == "call_function":
+                    calls[str(n.target)] = calls.get(str(n.target), 0) + 1
+                    if str(n.target).startswith("mm3d."):
+                        op = str(n.target).split(".")[1]
+                        got_nodes[op] = got_nodes.get(op, 0) + 1
+            check(got_nodes == nodes, f"3g {label}: graph's mm3d nodes "
+                                      f"{got_nodes}, want {nodes}")
+            path = os.path.join(tmp, f"{name}_{dtname}.pt2")
+            save_serving(path, ep)
+            del ep
+            t0 = time.perf_counter()
+            service = serving.PredictionService(path, device=dev.type)
+            service.warmup()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            check(service.batch == batch, f"3g {label}: artifact batch "
+                                          f"{service.batch}, want {batch}")
+
+            rnd = [inputs(name, B, 71 + i)
+                   for i, B in enumerate((batch, batch + EXTRA_ROWS, 1))]
+            want = [_chunked(pred, r, batch) for r in rnd]
+            server = serving.make_server(service, "127.0.0.1", 0)
+            small = serving.make_server(service, "127.0.0.1", 0,
+                                        max_body_mb=0.001)
+            for s in (server, small):
+                threading.Thread(target=s.serve_forever, daemon=True).start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                cuda_kernels.reset_launches()
+                serial = [_post(base, r) for r in rnd]
+                answers = [None] * (CLIENTS * len(rnd))
+
+                def client(c):
+                    for i, r in enumerate(rnd):
+                        answers[c * len(rnd) + i] = _post(base, r)
+
+                threads = [threading.Thread(target=client, args=(c,))
+                           for c in range(CLIENTS)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                torch.cuda.synchronize()
+                launches = launch_counts(cuda_kernels)
+                check(not any(t.is_alive() for t in threads),
+                      f"3g {label}: a client did not finish")
+                metrics = _get(base, "/metrics")
+                spec = _get(base, "/spec")
+                code413, _ = _post(
+                    f"http://127.0.0.1:{small.server_address[1]}", rnd[0])
+                lat = []
+                for _ in range(P50_REQUESTS):
+                    t0 = time.perf_counter()
+                    code, _ = _post(base, rnd[0])
+                    lat.append(time.perf_counter() - t0)
+                    check(code == 200, f"3g {label}: /predict {code}")
+            finally:
+                for s in (server, small):
+                    s.shutdown()
+                    s.server_close()
+
+            for (code, lp), r in zip(serial, rnd):
+                check(code == 200, f"3g {label}: /predict at B="
+                                   f"{r[0].shape[0]} answered {code}: {lp}")
+                check(lp.shape[0] == r[0].shape[0]
+                      and bool(np.isfinite(lp).all()),
+                      f"3g {label}: log-probs {lp.shape}, or not finite")
+            deltas = [float(np.abs(lp - w).max())
+                      for (_, lp), w in zip(serial, want)]
+            agree = min(float(np.mean(lp.argmax(-1) == w.argmax(-1)))
+                        for (_, lp), w in zip(serial, want))
+            print(f"3g {label}: artifact vs make_predictor at B = {batch}, "
+                  f"{batch + EXTRA_ROWS}, 1: max|d logp| {deltas}, argmax "
+                  f"agreement {agree}", flush=True)
+            if dtname == "float32":
+                check(max(deltas) <= 1e-5, f"3g {label}: artifact vs "
+                      f"make_predictor max|d logp| {max(deltas)} > 1e-5")
+            else:
+                check(agree == 1.0, f"3g {label}: artifact vs make_predictor "
+                                    f"argmax agreement {agree} < 1")
+            same = all(code == 200 and np.array_equal(lp, serial[i % len(
+                rnd)][1]) for i, (code, lp) in enumerate(answers))
+            check(same, f"3g {label}: {CLIENTS} concurrent clients did not "
+                        "get the serial answers bit for bit")
+            nreq = (1 + CLIENTS) * len(rnd)
+            forwards = (1 + CLIENTS) * sum(-(-r[0].shape[0] // batch)
+                                           for r in rnd)
+            clouds = (1 + CLIENTS) * sum(r[0].shape[0] for r in rnd)
+            check((metrics["requests_total"], metrics["errors_total"],
+                   metrics["clouds_total"]) == (nreq, 0, clouds),
+                  f"3g {label}: /metrics {metrics}, want {nreq} requests, "
+                  f"0 errors, {clouds} clouds")
+            check(code413 == 413, f"3g {label}: an oversize body got "
+                                  f"{code413}, not 413")
+            check(spec["batch"] == batch and spec["platforms"] == [dev.type],
+                  f"3g {label}: /spec {spec}")
+            want_launches = expect(cuda_kernels, **{
+                k: v * forwards for k, v in nodes.items()})
+            check(launches == want_launches, f"3g {label}: launches "
+                  f"{launches} while serving, want {want_launches}")
+            for k, v in launches.items():
+                total[k] += v
+
+            targs = [torch.from_numpy(a).to(dev) for a in rnd[0]]
+            with torch.no_grad():
+                art_ms = cuda_ms(torch, lambda: service._fn(*targs), 12,
+                                 warmup=3)
+                # device time and kernels of a forward (torch.profiler): the
+                # same work on the card, or more?
+                art_dev = times(torch, lambda: service._fn(*targs), 5,
+                                kernel="")
+            pred_ms = cuda_ms(torch, lambda: pred(*targs), 12, warmup=3)
+            pred_dev = times(torch, lambda: pred(*targs), 5, kernel="")
+            p50 = float(np.median(lat))
+            out[label] = {
+                "export_s": export_s, "load_warmup_s": load_s,
+                "graph_nodes": got_nodes, "forwards": forwards,
+                "launches": launches, "max_logp_delta": deltas,
+                "argmax_agreement": agree, "artifact_forward_ms": art_ms,
+                "predictor_forward_ms": pred_ms,
+                "artifact_device": art_dev, "predictor_device": pred_dev,
+                "graph_calls": sum(calls.values()),
+                "graph_calls_by_target": calls, "http_p50_s": p50,
+                "http_latency_s": lat, "metrics": metrics}
+            print(f"3g {label}: export {export_s} s, load + warmup {load_s} "
+                  f"s; forward at B={batch}: artifact {art_ms} ms, "
+                  f"make_predictor {pred_ms} ms (device busy "
+                  f"{art_dev['ms']} / {pred_dev['ms']} ms, kernels "
+                  f"{art_dev['kernels_per_call']} / "
+                  f"{pred_dev['kernels_per_call']}; graph "
+                  f"{sum(calls.values())} calls, "
+                  f"{calls.get('aten._assert_tensor_metadata.default', 0)} "
+                  f"of them dtype asserts); HTTP p50 {p50} s over "
+                  f"{P50_REQUESTS} requests; {card}", flush=True)
+            del service, pred, model
+            torch.cuda.empty_cache()
+    check(all(total[k] > 0 for k in (
+        "farthest_point_sample", "query_ball_point", "fused_sa",
+        "fused_sa_idx", "fused_fp", "bilinear_sample")),
+          f"3g: an operator never launched while the artifacts served: "
+          f"{total}")
+    return {"launches": total, "artifacts": out}
+
+
 def _grads(model):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
@@ -2645,6 +2899,7 @@ def main():
         "pointnet2_cls_msg": serve(torch, ops, cuda_kernels, dev,
                                    "pointnet2_cls_msg", clouds[:1])}
     torch.cuda.empty_cache()
+    artifacts = serve_artifacts(torch, cuda_kernels, dev, card)  # 3g
     trained = train(torch, ops, cuda_kernels, dev)
     trained_seg = train_semseg(torch, ops, cuda_kernels, dev)
     trained_knn = train(torch, ops, cuda_kernels, dev, "pointnet2_cls_knn")
@@ -2654,12 +2909,12 @@ def main():
     trained_scene = train_seg(torch, ops, cuda_kernels, dev,
                               "pointnet2_sem_seg")  # 4f
     # each kernel's launches on the main paths: serving every registered
-    # model but the attention-head variants (bf16 + fp32) and one epoch of
-    # Trainer.fit of fusion_cls, fusion_sem_seg, pointnet2_cls_knn,
-    # pointnet2_part_seg_msg, pointnet_cls and pointnet2_sem_seg (fp32 +
-    # bf16)
+    # model but the attention-head variants (bf16 + fp32), serving the
+    # exported artifacts over HTTP, and one epoch of Trainer.fit of
+    # fusion_cls, fusion_sem_seg, pointnet2_cls_knn, pointnet2_part_seg_msg,
+    # pointnet_cls and pointnet2_sem_seg (fp32 + bf16)
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
-              *served_pn.values(), *served_tops.values(), trained,
+              *served_pn.values(), *served_tops.values(), artifacts, trained,
               trained_seg, trained_knn, trained_part, trained_pn,
               trained_scene)
     main_launches = {k: sum(p["launches"][k] for p in phases)
@@ -2677,7 +2932,8 @@ def main():
                    "serve_pointnet2_cls": served_pn2,
                    "serve_pointnet2_part_seg": served_part,
                    "serve_pointnet": served_pn,
-                   "serve_pointnet2_tops": served_tops, "train": trained,
+                   "serve_pointnet2_tops": served_tops,
+                   "serve_artifacts": artifacts, "train": trained,
                    "train_pointnet_cls": trained_pn,
                    "train_pointnet2_sem_seg": trained_scene,
                    "train_pointnet2_cls_knn": trained_knn,

@@ -6,7 +6,8 @@ modules against its JAX twin on the same inputs and weights.
 
 Layout (mirrors ``mm3d_tpu``)
 -----------------------------
-ops/       plain PyTorch geometry ops, kernel wrappers, dispatch, kernel build
+ops/       plain PyTorch geometry ops, kernel wrappers and the ``mm3d::*``
+           kernel operators, dispatch, kernel build
 csrc/      hand-written CUDA kernels for sm_90a (FPS, ball query, fused SA,
            gather backward, fused FP tail, bilinear image sampling,
            three_nn, three_interpolate)
@@ -14,8 +15,10 @@ models/    nn.Modules: layers, SetAbstraction(Msg), FeaturePropagation, image
            CNN, the PointNet models, the PointNet++ classifiers, part-seg
            and sem-seg models, fusion_cls, fusion_sem_seg, losses, registry
 data/      synthetic datasets, augmentation, the prefetching input pipeline
-training/  serving (``make_predictor``) and training (``Trainer``, steps,
-           optimizer, schedules)
+training/  serving (``make_predictor``, ``export_serving``) and training
+           (``Trainer``, steps, optimizer, schedules)
+serving.py the HTTP daemon of exported artifacts (``PredictionService``,
+           ``make_server``; ``python -m mm3d_tpu_torch.serving``)
 utils/     flax weight transfer, metrics, profiling on the card
 
 The port serves and trains every model of the JAX registry: the five

@@ -6,6 +6,35 @@ current stream, raises if the launch returned an error, and adds one to its
 ``launches`` count. For a CPU tensor, or under ``use_impl("torch")``, it
 returns its plain PyTorch twin instead. There is no other fallback.
 
+The six kernels of the serving paths run as PyTorch operators in the
+namespace ``mm3d`` (``torch.library.custom_op``), so that ``torch.export``
+records a launch as one graph node (``mm3d::fused_sa``, ...) and a served
+artifact launches the same kernels (``training.inference.export_serving``):
+
+=====================  =========================================
+operator               wrapper
+=====================  =========================================
+farthest_point_sample  farthest_point_sample
+query_ball_point       query_ball_point
+fused_sa               fused_sa
+fused_sa_idx           fused_sa_idx
+fused_fp               fused_fp
+bilinear_sample        the sampling's forward (``_bilinear_forward``)
+=====================  =========================================
+
+The wrapper keeps ``dispatch.resolve`` in front and calls
+``torch.ops.mm3d.<name>`` on the kernel path. The operator's implementation
+is the kernel branch: the checks, the allocation, the launch plan (worked
+out from the real shapes at each call, so a traced graph holds no plan),
+the launch and the count. It is registered for every device type: a CPU
+tensor reaches it only where ``dispatch.resolve`` answers 'cuda' for it,
+and then raises at the launch (the CPU tests fake the launch, see
+``tests/test_torch_fused_sa.py::fake_kernels``). Its fake implementation
+gives the output's shape, dtype and device, and nothing else. Registration
+happens at import and builds nothing. The backward kernels (gather
+backward, three_nn, three_interpolate) stay plain ``ctypes`` calls: export
+is of the eval forward only.
+
 =====================  ==============================  ========================
 wrapper                kernel                          plain twin
 =====================  ==============================  ========================
@@ -139,12 +168,27 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     ``start_idx`` is an int or a [B] tensor of indices in [0, N)."""
     if dispatch.resolve(xyz) == "torch":
         return fps_torch(xyz, npoint, start_idx)
+    return torch.ops.mm3d.farthest_point_sample(
+        xyz, npoint, _start_vector(start_idx, xyz.shape[0], xyz.shape[1],
+                                   xyz.device))
+
+
+@torch.library.custom_op("mm3d::farthest_point_sample", mutates_args=())
+def _fps_op(xyz: torch.Tensor, npoint: int,
+            start: torch.Tensor) -> torch.Tensor:
+    """The FPS kernel: xyz [B,N,3] f32, start [B] int32 indices in [0, N)
+    (``_start_vector`` checks them) -> [B,npoint] int32."""
     xyz = _f32_points("xyz", xyz, xyz.device)
     B, N, _ = xyz.shape
     limit = _fn("mm3d_fps_max_points")()
     if N > limit:
         raise ValueError(f"FPS kernel takes at most {limit} points, got {N}")
-    start = _start_vector(start_idx, B, N, xyz.device)
+    if (start.shape != (B,) or start.dtype != torch.int32
+            or start.device != xyz.device):
+        raise ValueError(f"start must be [{B}] int32 on {xyz.device}, got "
+                         f"{tuple(start.shape)} {start.dtype} on "
+                         f"{start.device}")
+    start = start.contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0 or npoint == 0:
         return out
@@ -152,6 +196,11 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
             _stream(xyz))
     farthest_point_sample.launches += 1
     return out
+
+
+@_fps_op.register_fake
+def _(xyz, npoint, start):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
 
 
 farthest_point_sample.launches = 0
@@ -165,6 +214,13 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     """Ball query: xyz [B,N,3], new_xyz [B,S,3] f32 -> [B,S,nsample] int32."""
     if dispatch.resolve(xyz) == "torch":
         return ball_query_torch(radius, nsample, xyz, new_xyz)
+    return torch.ops.mm3d.query_ball_point(radius, nsample, xyz, new_xyz)
+
+
+@torch.library.custom_op("mm3d::query_ball_point", mutates_args=())
+def _ball_query_op(radius: float, nsample: int, xyz: torch.Tensor,
+                   new_xyz: torch.Tensor) -> torch.Tensor:
+    """The ball-query kernel -> [B,S,nsample] int32."""
     xyz = _f32_points("xyz", xyz, xyz.device)
     new_xyz = _f32_points("new_xyz", new_xyz, xyz.device)
     B, N, _ = xyz.shape
@@ -178,6 +234,12 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
             nsample, _r2(radius), _stream(xyz))
     query_ball_point.launches += 1
     return out
+
+
+@_ball_query_op.register_fake
+def _(radius, nsample, xyz, new_xyz):
+    return xyz.new_empty((xyz.shape[0], new_xyz.shape[1], nsample),
+                         dtype=torch.int32)
 
 
 query_ball_point.launches = 0
@@ -366,6 +428,16 @@ def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
     if dispatch.resolve(pre) == "torch":
         return fused_sa_torch(radius, nsample, xyz, new_xyz, pre, cbias,
                               w1, b1, w2, b2)
+    return torch.ops.mm3d.fused_sa(radius, nsample, xyz, new_xyz, pre, cbias,
+                                   w1, b1, w2, b2)
+
+
+@torch.library.custom_op("mm3d::fused_sa", mutates_args=())
+def _fused_sa_op(radius: float, nsample: int, xyz: torch.Tensor,
+                 new_xyz: torch.Tensor, pre: torch.Tensor,
+                 cbias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The fused SA kernel, ball-query form, under its ``sa_plan``."""
     dev = pre.device
     xyz = _f32_points("xyz", xyz, dev)
     new_xyz = _f32_points("new_xyz", new_xyz, dev)
@@ -381,6 +453,11 @@ def fused_sa(radius: float, nsample: int, xyz: torch.Tensor,
             nsample, *dims, _r2(radius), _stream(pre))
     fused_sa.launches += 1
     return out
+
+
+@_fused_sa_op.register_fake
+def _(radius, nsample, xyz, new_xyz, pre, cbias, w1, b1, w2, b2):
+    return pre.new_empty((xyz.shape[0], new_xyz.shape[1], w2.shape[-1]))
 
 
 fused_sa.launches = 0
@@ -399,6 +476,15 @@ def fused_sa_idx(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
     Returns [B,S,C3] in pre's dtype."""
     if dispatch.resolve(pre) == "torch":
         return fused_sa_idx_torch(nsample, idx, pre, cbias, w1, b1, w2, b2)
+    return torch.ops.mm3d.fused_sa_idx(nsample, idx, pre, cbias, w1, b1, w2,
+                                       b2)
+
+
+@torch.library.custom_op("mm3d::fused_sa_idx", mutates_args=())
+def _fused_sa_idx_op(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
+                     cbias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The fused SA kernel, given-index form, under its ``sa_plan``."""
     dev = pre.device
     if idx.device != dev:
         raise ValueError(f"idx is on {idx.device}, expected {dev}")
@@ -423,6 +509,11 @@ def fused_sa_idx(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
             _stream(pre))
     fused_sa_idx.launches += 1
     return out
+
+
+@_fused_sa_idx_op.register_fake
+def _(nsample, idx, pre, cbias, w1, b1, w2, b2):
+    return pre.new_empty((idx.shape[0], idx.shape[1], w2.shape[-1]))
 
 
 fused_sa_idx.launches = 0
@@ -646,6 +737,13 @@ def fused_fp(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
     Returns [B,N,C] in pre's dtype."""
     if dispatch.resolve(pre) == "torch":
         return fused_fp_torch(xyz1, xyz2, pre, skip)
+    return torch.ops.mm3d.fused_fp(xyz1, xyz2, pre, skip)
+
+
+@torch.library.custom_op("mm3d::fused_fp", mutates_args=())
+def _fused_fp_op(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
+                 skip: torch.Tensor) -> torch.Tensor:
+    """The fused FP kernel under its ``fp_plan``."""
     dev, dt = pre.device, pre.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_fp takes bf16 or f32 features, got {dt}")
@@ -680,6 +778,11 @@ def fused_fp(xyz1: torch.Tensor, xyz2: torch.Tensor, pre: torch.Tensor,
             M, C, plan.lanes, plan.smem, _stream(pre))
     fused_fp.launches += 1
     return out
+
+
+@_fused_fp_op.register_fake
+def _(xyz1, xyz2, pre, skip):
+    return pre.new_empty((xyz1.shape[0], xyz1.shape[1], pre.shape[-1]))
 
 
 fused_fp.launches = 0
@@ -731,6 +834,12 @@ def _bilinear_forward(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """The forward: the bilinear kernel for CUDA tensors, else the twin."""
     if dispatch.resolve(feat) == "torch":
         return bilinear_sample_torch(feat, uv)
+    return torch.ops.mm3d.bilinear_sample(feat, uv)
+
+
+@torch.library.custom_op("mm3d::bilinear_sample", mutates_args=())
+def _bilinear_op(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """The bilinear kernel: feat [B,H,W,C], uv [B,N,2] f32 -> [B,N,C]."""
     dev, dt = feat.device, feat.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"bilinear_sample takes bf16 or f32 maps, got {dt}")
@@ -758,6 +867,11 @@ def _bilinear_forward(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
             W, N, C, _stream(feat))
     bilinear_sample.launches += 1
     return out
+
+
+@_bilinear_op.register_fake
+def _(feat, uv):
+    return feat.new_empty((feat.shape[0], uv.shape[1], feat.shape[-1]))
 
 
 def bilinear_sample_backward(feat: torch.Tensor, uv: torch.Tensor,

@@ -20,7 +20,20 @@ prediction drift between two predictors.
 The fp32 mode is strict fp32 only if the caller turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``); PyTorch lets cuDNN convolutions use
-TF32 by default. The StableHLO export of the JAX package is a later slice.
+TF32 by default.
+
+``export_serving`` / ``save_serving`` / ``load_serving`` freeze the eval
+forward into a deployable artifact, the counterpart of the JAX package's
+StableHLO export: ``torch.export`` traces the predictor's model (eval mode,
+no grad, log-probs only) into an ExportedProgram whose state holds the
+weights. On the kernel path each kernel launch of the forward is one node
+of the graph, a ``mm3d::*`` operator of ``ops.cuda_kernels``, whose launch
+plan is worked out from the real shapes when the artifact runs; under
+``use_impl("torch")`` (or for CPU tensors) the graph holds the plain ops.
+The artifact is bound to the device type it was exported on: there is no
+cross-lowering (the JAX ``platforms``) and no opt-in for kernels (JAX's
+``allow_tpu_kernels``). ``mm3d_tpu_torch.serving`` serves it over HTTP
+with no model code.
 """
 
 from __future__ import annotations
@@ -28,8 +41,13 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from mm3d_tpu_torch.models import get_model
+from mm3d_tpu_torch.serving import load_serving, save_serving
+
+__all__ = ["make_predictor", "agreement", "export_serving", "save_serving",
+           "load_serving"]
 
 
 def make_predictor(model_name: str, state: Dict[str, torch.Tensor],
@@ -63,6 +81,42 @@ def make_predictor(model_name: str, state: Dict[str, torch.Tensor],
 
     predict.model = model
     return predict
+
+
+class _LogProbs(nn.Module):
+    """A model's eval forward, its log-probs only."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args):
+        return self.model(*args)[0]
+
+
+def export_serving(predict: Callable, example_args,
+                   poly_batch: bool = False) -> torch.export.ExportedProgram:
+    """Ahead-of-time export of a ``make_predictor`` predictor.
+
+    ``example_args`` give the shapes and dtypes (moved to the predictor's
+    device like a request's inputs). The forward is traced on that device
+    under the impl mode in force: on the card the graph calls the
+    ``mm3d::*`` kernel operators. ``poly_batch=True`` shares one symbolic
+    batch dimension across every input, so one artifact serves any batch of
+    1 or more, on the kernel path as on the plain one; an export that
+    cannot keep the batch symbolic raises. Save the result with
+    ``save_serving``."""
+    model = predict.model
+    dev = next(model.parameters()).device
+    args = tuple(torch.as_tensor(a, device=dev) for a in example_args)
+    dynamic = None
+    if poly_batch:
+        batch = torch.export.Dim("batch", min=1)
+        # one entry: forward's *args
+        dynamic = (tuple({0: batch} for _ in args),)
+    with torch.no_grad():
+        return torch.export.export(_LogProbs(model).eval(), args,
+                                   dynamic_shapes=dynamic)
 
 
 def agreement(pred_a: Callable, pred_b: Callable, *args) -> dict:

@@ -25,7 +25,9 @@ def fake_kernels(monkeypatch):
     """The kernel path of the wrappers, on the CPU: ``dispatch.resolve``
     answers 'cuda', and each launch runs the kernel's plain twin into the
     outputs the wrapper allocated (``_ptr`` hands the tensors through). The
-    wrappers' checks, allocations and launch counts run as on the card."""
+    wrappers' checks, allocations and launch counts run as on the card; the
+    six serving kernels' run inside their ``mm3d::*`` operators, whose
+    implementation takes CPU tensors too, so an exported graph runs here."""
     monkeypatch.setattr(dispatch, "resolve", lambda t: "cuda")
     monkeypatch.setattr(ck, "_ptr", lambda t: t)
     monkeypatch.setattr(ck, "_stream", lambda t: None)
