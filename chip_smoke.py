@@ -150,7 +150,26 @@ that goes wrong:
    times), of a BN refresh and of an eval forward, ten steps on one batch,
    step time, points/s, peak memory and one short epoch of
    ``Trainer.fit`` ending in an eval with its mIoU;
-5. prints the ``{"kernels": [...]}`` line, then, last, the
+5. training completeness. 5a: fusion_cls at full width in bf16 mixed
+   precision (B=24, 64x64 views, 4 steps an epoch, 2 eval batches), in
+   deterministic mode: run A trains 2 epochs through ``Trainer.fit``; run B
+   trains 1, then a new ``Trainer(resume=True, run_name=...)`` restores the
+   newest checkpoint and trains the second. B's restored model, optimizer
+   state, step and generator states must be bit-identical with what was
+   saved; after epoch 2 A's and B's parameters, BN buffers, Adam moments,
+   step and generators must be bit-identical, their metrics.jsonl equal
+   but the epoch times, and each run's gather-backward launches 2 a step.
+   Prints the checkpoint's bytes and the seconds a save and a restore take.
+   5b: the four vote steps at V=3 (fusion_cls and pointnet2_cls_ssg at
+   B=128 x 1024, pointnet2_part_seg_msg and fusion_sem_seg at B=16 x
+   2048), bf16 and fp32 on the same draws: a vote step launches each
+   kernel V times a serving forward's count; fp32 summed probabilities
+   within 1e-4 of the plain path's and predictions equal wherever the
+   top-two margin exceeds 1e-4; bf16 agreement with the fp32 vote >= 0.95;
+   ms a vote step (CUDA events, median of 5 after 2 warm-ups). Every
+   Trainer of phases 4-5a writes its run directory under one temporary
+   directory, removed at the end;
+6. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package. The details also go to
@@ -159,8 +178,10 @@ chiprun_out/chip_smoke.json.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2290,7 +2311,7 @@ TRAIN_LAUNCHES = {
     "pointnet2_cls_knn": {"farthest_point_sample": 2, "gather_backward": 2}}
 
 
-def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
+def train(torch, ops, cuda_kernels, dev, log_root, name="fusion_cls"):
     """Training of a cloud classifier at full width (``fusion_cls``,
     ``pointnet2_cls_knn`` or ``pointnet_cls``), fp32 (TF32 off) then bf16.
     For ``pointnet_cls`` also the feature-transform regulariser's term of
@@ -2408,7 +2429,7 @@ def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
         cfg = TrainConfig(model=name, train_size=TRAIN_SIZE,
                           test_size=TEST_SIZE, epochs=1, num_class=NUM_CLASS,
                           batch_size=TRAIN_BATCH, npoint=NPOINT,
-                          dtype=dtname, device=str(dev))
+                          dtype=dtname, device=str(dev), log_dir=log_root)
         trainer = Trainer(cfg)
         cuda_kernels.reset_launches()
         final = trainer.fit()
@@ -2432,13 +2453,14 @@ def train(torch, ops, cuda_kernels, dev, name="fusion_cls"):
         print(f"fit {label}: 1 epoch of {nsteps} steps, train "
               f"{hist['train']}, eval {final}, launches {fit_launches}",
               flush=True)
+        trainer.close()
         del trainer
         torch.cuda.empty_cache()
         out[dtname] = res
     return out
 
 
-def train_semseg(torch, ops, cuda_kernels, dev):
+def train_semseg(torch, ops, cuda_kernels, dev, log_root):
     """fusion_sem_seg training at full width, fp32 (TF32 off) then bf16."""
     import copy
 
@@ -2532,7 +2554,8 @@ def train_semseg(torch, ops, cuda_kernels, dev):
         del kmodel, pmodel, step, kstep, pstep
         # (d) the main path: one short epoch of Trainer.fit (3 steps; eval
         # over 24 blocks; in bf16 the BN refresh before it)
-        trainer = Trainer(config(dtype=dtname, device=str(dev)))
+        trainer = Trainer(config(dtype=dtname, device=str(dev),
+                                 log_dir=log_root))
         cuda_kernels.reset_launches()
         final = trainer.fit()
         torch.cuda.synchronize()
@@ -2558,6 +2581,7 @@ def train_semseg(torch, ops, cuda_kernels, dev):
         print(f"fit {label}: 1 epoch of {nsteps} steps, train "
               f"{hist['train']}, eval {final}, launches {fit_launches}",
               flush=True)
+        trainer.close()
         del trainer
         torch.cuda.empty_cache()
         out[dtname] = res
@@ -2578,7 +2602,7 @@ SEG_TRAIN_LAUNCHES = {
         "three_interpolate": 4, "gather_backward": 8}}
 
 
-def train_seg(torch, ops, cuda_kernels, dev, name):
+def train_seg(torch, ops, cuda_kernels, dev, name, log_root):
     """Training of a segmentation model at full width, fp32 (TF32 off) then
     bf16: pointnet2_part_seg_msg (B=24 clouds of 2,048 points, the part-seg
     eval) or pointnet2_sem_seg (B=24 blocks of 4,096 points, the semseg
@@ -2746,7 +2770,8 @@ def train_seg(torch, ops, cuda_kernels, dev, name):
              astep, bstep, fixed)
         # (d) the main path: one short epoch of Trainer.fit (3 steps; eval
         # over 24 clouds or blocks; in bf16 the BN refresh before it)
-        trainer = Trainer(config(dtype=dtname, device=str(dev)))
+        trainer = Trainer(config(dtype=dtname, device=str(dev),
+                                 log_dir=log_root))
         cuda_kernels.reset_launches()
         final = trainer.fit()
         torch.cuda.synchronize()
@@ -2776,9 +2801,268 @@ def train_seg(torch, ops, cuda_kernels, dev, name):
         print(f"fit {label}: 1 epoch of {nsteps} steps, train "
               f"{hist['train']}, eval {final}, launches {fit_launches}",
               flush=True)
+        trainer.close()
         del trainer
         torch.cuda.empty_cache()
         out[dtname] = res
+    return out
+
+
+# phase 5a: fusion_cls resumed at full width, bf16 mixed precision: 4 steps
+# an epoch (B=24), 2 eval batches; phase 5b: V votes a vote step
+RESUME_TRAIN_SIZE, RESUME_TEST_SIZE, VOTES = 96, 48, 3
+# the keys of a metrics.jsonl record that are the epoch's times, not its
+# numbers
+TIME_KEYS = ("train/epoch_time_s", "train/clouds_per_s")
+
+
+def _state_diff(torch, a, b, where=""):
+    """Names of the entries of two train states (nested dicts of tensors
+    and numbers) that are not bit-identical."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{where}: keys {sorted(a)} vs {sorted(b)}"]
+        return [d for k in a for d in _state_diff(torch, a[k], b[k],
+                                                  f"{where}/{k}")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [where]
+    return [] if a == b else [f"{where}: {a} vs {b}"]
+
+
+def train_resume(torch, cuda_kernels, dev, log_root):
+    """Phase 5a: fusion_cls at full width in bf16 mixed precision, trained
+    two epochs straight (run A) and one epoch, then a new Trainer with
+    ``resume=True`` for the second (run B), both in deterministic mode, as
+    phases 4d and 4f take their plain step. B's restored state must be what
+    was saved, and after epoch 2 A and B must be bit-identical."""
+    from mm3d_tpu_torch.training import TrainConfig, Trainer
+    from mm3d_tpu_torch.training.state import load_train_state
+    from mm3d_tpu_torch.utils.checkpoint import CheckpointManager
+
+    def config(epochs=2, **kw):
+        return TrainConfig(model="fusion_cls", epochs=epochs,
+                           batch_size=TRAIN_BATCH, npoint=NPOINT,
+                           num_class=NUM_CLASS, image_hw=IMAGE_HW,
+                           dtype="bfloat16", train_size=RESUME_TRAIN_SIZE,
+                           test_size=RESUME_TEST_SIZE, device=str(dev),
+                           log_dir=log_root, **kw)
+
+    def metrics(tr):
+        with open(os.path.join(tr.run_dir, "logs", "metrics.jsonl")) as f:
+            return [{k: v for k, v in json.loads(line).items()
+                     if k not in TIME_KEYS} for line in f]
+
+    out = {"launches": expect(cuda_kernels)}
+    runs = {}
+
+    def fit(tr, name):
+        cuda_kernels.reset_launches()
+        step0 = tr.step
+        tr.fit()
+        torch.cuda.synchronize()
+        got = launch_counts(cuda_kernels)
+        nsteps = tr.step - step0
+        check(got["gather_backward"] == 2 * nsteps,
+              f"resume {name}: launches {got} over {nsteps} steps")
+        for k, v in got.items():
+            out["launches"][k] += v
+        runs[name] = {"steps": nsteps, "launches": got}
+
+    # bincount (the eval's confusion matrix) has no deterministic CUDA
+    # form; its weights are whole numbers, so its sums are exact in any
+    # order: warn_only keeps the eval running
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = Trainer(config(run_name="A"))
+        fit(a, "A epochs 1-2")
+        b1 = Trainer(config(run_name="B", epochs=1))
+        check(b1.train_pipe.steps_per_epoch() == 4, "resume: 4 steps an "
+                                                    "epoch")
+        fit(b1, "B epoch 1")
+        b1.close()
+        saved = b1.ckpt_latest.restore()
+        bad = _state_diff(torch, b1.train_state(), saved)
+        check(not bad, f"resume: the checkpoint differs from the state "
+                       f"it saved: {bad[:5]}")
+        b = Trainer(config(run_name="B", resume=True))
+        check((b.start_epoch, b.step) == (1, 4),
+              f"resume: start epoch {b.start_epoch}, step {b.step}")
+        bad = _state_diff(torch, b.train_state(), saved)
+        check(not bad, f"resume: restored state differs: {bad[:5]}")
+        fit(b, "B epoch 2")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = _state_diff(torch, a.train_state(), b.train_state())
+    check(a.step == b.step == 8 and not bad,
+          f"resume: A and B differ after epoch 2 (steps {a.step} / "
+          f"{b.step}): {bad[:5]}")
+    ma, mb = metrics(a), metrics(b)
+    check(len(ma) == 4 and ma == mb, f"resume: metrics.jsonl differ "
+                                     f"{ma} vs {mb}")
+    n_tensors = len(a.train_state()["model"])
+    print(f"resume fusion_cls bf16 B={TRAIN_BATCH}: run A 2 epochs, run B 1 "
+          f"+ resume + 1; restored state bit-identical with the saved one; "
+          f"after epoch 2 parameters, BN buffers ({n_tensors} tensors), "
+          f"Adam moments, step {a.step} and generators bit-identical; "
+          f"metrics.jsonl equal but {TIME_KEYS}; launches {runs}",
+          flush=True)
+    # what a save and a restore cost (the file was just written: a warm
+    # read)
+    timing = CheckpointManager(os.path.join(log_root, "timing"),
+                               max_to_keep=1)
+    state = b.train_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.save(b.step, state)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(timing.directory, f"{b.step}.pt"))
+    t0 = time.perf_counter()
+    load_train_state(timing.restore(), b.model, b.optimizer, b.generator,
+                     b.fps_generator)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    print(f"resume: checkpoint {nbytes} bytes, save {save_s} s, restore "
+          f"{restore_s} s (warm read)", flush=True)
+    for tr in (a, b):
+        tr.close()
+    out.update({"runs": runs, "checkpoint_bytes": nbytes, "save_s": save_s,
+                "restore_s": restore_s, "bit_identical": True,
+                "metrics_records": len(ma),
+                "final_eval": {k: v for k, v in ma[-1].items()}})
+    return out
+
+
+# phase 5b: each vote step's model and full-width request
+VOTE_CASES = (("fusion_cls", BATCH, NPOINT),
+              ("pointnet2_cls_ssg", BATCH, NPOINT),
+              ("pointnet2_part_seg_msg", PART_BATCH, PART_NPOINT),
+              ("fusion_sem_seg", SEG_BATCH, SEG_NPOINT))
+
+
+def vote_eval(torch, ops, cuda_kernels, dev):
+    """Phase 5b: the four vote steps at full width, V votes, random seeded
+    weights, bf16 and fp32 with the same draws: the kernel path against the
+    plain path (fp32), launches against the serving forward's, bf16 against
+    fp32, ms a vote step."""
+    from mm3d_tpu_torch.data.synthetic import (partseg_request,
+                                               semseg_request,
+                                               shapenet_part_ranges)
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import steps
+    from mm3d_tpu_torch.utils.metrics import part_ranges
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    start, count = part_ranges(shapenet_part_ranges(), dev)
+    out = {"launches": expect(cuda_kernels)}
+    for name, B, N in VOTE_CASES:
+        spec = get_model(name)
+        task = spec.task
+        kw = ({} if task == "partseg" else
+              {"num_class": SEG_CLASSES if task == "fusion_semseg"
+               else NUM_CLASS})
+        gen = torch.Generator(dev).manual_seed(70)
+        valid = None  # partseg: each point's category parts
+        if task == "partseg":
+            pts, onehot, cat, _ = (torch.from_numpy(a).to(dev)
+                                   for a in partseg_request(B, N, seed=70))
+            args, forward = (pts, cat), (pts, onehot)
+            draws = steps.draw_vote_perms(gen, VOTES, B, N, dev)
+            pid = torch.arange(PART_PARTS, device=dev)
+            lo = start[cat.long()][:, None, None]
+            valid = (pid >= lo) & (pid < lo + count[cat.long()][:, None,
+                                                                  None])
+
+            def make(m):
+                return steps.make_vote_partseg_step(m, VOTES, PART_CATS,
+                                                    start, count)
+        elif task == "fusion_semseg":
+            args = forward = tuple(torch.from_numpy(a).to(dev) for a in
+                                   semseg_request(B, N, IMAGE_HW, seed=70))
+            draws = steps.draw_vote_perms(gen, VOTES, B, N, dev)
+
+            def make(m):
+                return steps.make_vote_fusion_semseg_step(m, VOTES)
+        elif task == "fusion_cls":
+            args = forward = tuple(torch.from_numpy(a).to(dev)
+                                   for a in request(70))
+            draws = steps.draw_vote_angles(gen, VOTES, B, dev)
+
+            def make(m):
+                return steps.make_vote_fusion_cls_step(m, VOTES)
+        else:
+            args = forward = (torch.from_numpy(unit_sphere_clouds(
+                np.random.RandomState(70), B, N)).to(dev),)
+            draws = steps.draw_vote_angles(gen, VOTES, B, dev)
+
+            def make(m):
+                return steps.make_vote_eval_step(m, VOTES)
+        base = init_params(spec.builder(**kw), seed=0)
+        nontrivial_bn(base, seed=1)
+        state = base.state_dict()
+        res, preds = {}, {}
+        for dtname, dtype in (("float32", None),
+                              ("bfloat16", torch.bfloat16)):
+            label = f"vote {name} {dtname}"
+            model = spec.builder(dtype=dtype, **kw)
+            model.load_state_dict(state)
+            model.to(dev).eval()
+            step = make(model)
+            # one serving forward's launches, then the vote step's (the
+            # main path)
+            cuda_kernels.reset_launches()
+            with torch.no_grad():
+                model(*forward)
+            torch.cuda.synchronize()
+            one = launch_counts(cuda_kernels)
+            cuda_kernels.reset_launches()
+            pred, probs = step(*args, draws, return_probs=True)
+            torch.cuda.synchronize()
+            got = launch_counts(cuda_kernels)
+            check(any(one.values()) and got == {k: VOTES * v
+                                                for k, v in one.items()},
+                  f"{label}: launches {got}, a forward {one}")
+            for k, v in got.items():
+                out["launches"][k] += v
+            shape = (B, N) if task in ("partseg", "fusion_semseg") else (B,)
+            check(tuple(pred.shape) == shape and pred.dtype == torch.int32
+                  and bool(torch.isfinite(probs).all()),
+                  f"{label}: predictions {tuple(pred.shape)} {pred.dtype}")
+            sums = float((probs.sum(-1) - VOTES).abs().max())
+            check(sums < 1e-3 * VOTES, f"{label}: probabilities sum off "
+                                       f"{VOTES} by {sums}")
+            r = {"launches": got, "launches_a_forward": one,
+                 "ms": cuda_ms(torch, lambda: step(*args, draws), 5,
+                               warmup=2)}
+            if dtname == "float32":
+                with ops.use_impl("torch"):
+                    ppred, pprobs = step(*args, draws, return_probs=True)
+                d = float((probs - pprobs).abs().max())
+                check(d <= 1e-4, f"{label}: summed probabilities, kernel vs "
+                                 f"plain, max|d| {d} > 1e-4")
+                ranked = (pprobs if valid is None else torch.where(
+                    valid, pprobs, torch.full_like(pprobs, -1.0)))
+                top2 = ranked.topk(2, dim=-1).values
+                clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+                differ = int(((pred != ppred) & clear).sum())
+                check(differ == 0, f"{label}: {differ} predictions differ "
+                                   "from the plain path's past a 1e-4 "
+                                   "margin")
+                r.update({"kernel_vs_plain_max_abs": d,
+                          "differ_past_margin": differ,
+                          "within_margin": int((~clear).sum())})
+            preds[dtname] = pred
+            res[dtname] = r
+            print(f"{label}: B={B} x N={N}, V={VOTES}: {r}", flush=True)
+            del model, step
+        agree = float((preds["bfloat16"] == preds["float32"]).float().mean())
+        check(agree >= 0.95, f"vote {name}: bf16 vs fp32 agreement {agree} "
+                             "< 0.95")
+        res["bf16_vs_fp32_agreement"] = agree
+        print(f"vote {name}: bf16 vs fp32 vote agreement {agree}", flush=True)
+        out[name] = res
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2900,23 +3184,33 @@ def main():
                                    "pointnet2_cls_msg", clouds[:1])}
     torch.cuda.empty_cache()
     artifacts = serve_artifacts(torch, cuda_kernels, dev, card)  # 3g
-    trained = train(torch, ops, cuda_kernels, dev)
-    trained_seg = train_semseg(torch, ops, cuda_kernels, dev)
-    trained_knn = train(torch, ops, cuda_kernels, dev, "pointnet2_cls_knn")
-    trained_part = train_seg(torch, ops, cuda_kernels, dev,
-                             "pointnet2_part_seg_msg")
-    trained_pn = train(torch, ops, cuda_kernels, dev, "pointnet_cls")  # 4e
-    trained_scene = train_seg(torch, ops, cuda_kernels, dev,
-                              "pointnet2_sem_seg")  # 4f
+    # every Trainer's run directory and checkpoints, removed at the end
+    log_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    try:
+        trained = train(torch, ops, cuda_kernels, dev, log_root)
+        trained_seg = train_semseg(torch, ops, cuda_kernels, dev, log_root)
+        trained_knn = train(torch, ops, cuda_kernels, dev, log_root,
+                            "pointnet2_cls_knn")
+        trained_part = train_seg(torch, ops, cuda_kernels, dev,
+                                 "pointnet2_part_seg_msg", log_root)
+        trained_pn = train(torch, ops, cuda_kernels, dev, log_root,
+                           "pointnet_cls")  # 4e
+        trained_scene = train_seg(torch, ops, cuda_kernels, dev,
+                                  "pointnet2_sem_seg", log_root)  # 4f
+        resumed = train_resume(torch, cuda_kernels, dev, log_root)  # 5a
+    finally:
+        shutil.rmtree(log_root, ignore_errors=True)
+    voted = vote_eval(torch, ops, cuda_kernels, dev)  # 5b
     # each kernel's launches on the main paths: serving every registered
     # model but the attention-head variants (bf16 + fp32), serving the
-    # exported artifacts over HTTP, and one epoch of Trainer.fit of
+    # exported artifacts over HTTP, one epoch of Trainer.fit of
     # fusion_cls, fusion_sem_seg, pointnet2_cls_knn, pointnet2_part_seg_msg,
-    # pointnet_cls and pointnet2_sem_seg (fp32 + bf16)
+    # pointnet_cls and pointnet2_sem_seg (fp32 + bf16), the resumed
+    # fusion_cls runs and the four vote steps (bf16 + fp32)
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
               *served_pn.values(), *served_tops.values(), artifacts, trained,
               trained_seg, trained_knn, trained_part, trained_pn,
-              trained_scene)
+              trained_scene, resumed, voted)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
     kernels = kernels_line(rows, main_launches)
@@ -2939,6 +3233,7 @@ def main():
                    "train_pointnet2_cls_knn": trained_knn,
                    "train_fusion_sem_seg": trained_seg,
                    "train_pointnet2_part_seg_msg": trained_part,
+                   "train_resume": resumed, "vote_eval": voted,
                    "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,14 +12,26 @@ statistics; it evaluates in f32 on the same parameters unless
 ``eval_dtype="bfloat16"``, and re-estimates the BN statistics with 8
 forward passes before each eval (``loop.py:183-230,345-357``).
 
-Not ported yet: checkpointing and resume, the run-directory logger and the
-data-parallel mesh (``TrainConfig`` has no fields for them, so asking for
-them raises).
+Each run writes a run directory, ``<log_dir>/<task>/<run_name or a time
+stamp>/`` (``utils.logging_utils``): ``logs/metrics.jsonl`` and
+``logs/train.log`` get the train and eval metrics of every epoch, and with
+``checkpoint`` (the default) the train state (``training.state
+.make_train_state``: parameters, BN buffers, optimizer state, step and the
+generators' states) is saved after each eval twice: into ``checkpoints/``,
+which keeps the best three by the task's ``BEST_METRIC``, and into
+``checkpoints_latest/``, which keeps the newest. ``resume=True`` with the
+``run_name`` of an earlier run restores the newest state (from
+``checkpoints_latest/``, else ``checkpoints/``) and goes on from its epoch;
+the resumed run is bit for bit the uninterrupted one. A checkpoint restores
+onto the device type it was written on.
+
+Not ported yet: the data-parallel mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional, Sequence
 
@@ -31,11 +43,15 @@ from mm3d_tpu_torch.data import synthetic as syn
 from mm3d_tpu_torch.data.pipeline import DataPipeline
 from mm3d_tpu_torch.models import get_model, init_params
 from mm3d_tpu_torch.training import schedules, steps
-from mm3d_tpu_torch.training.state import make_optimizer
+from mm3d_tpu_torch.training.state import (load_train_state,
+                                           make_optimizer, make_train_state)
 from mm3d_tpu_torch.utils import metrics as M
+from mm3d_tpu_torch.utils.checkpoint import CheckpointManager
+from mm3d_tpu_torch.utils.logging_utils import MetricsLogger, create_run_dir
 
-# per-task headline metric: the best-of-run value ``fit`` reports
-# (``loop.py:34-38`` of the JAX package)
+# per-task headline metric: the best-of-run value ``fit`` reports and the
+# one the best-checkpoint retention ranks by (``loop.py:34-38`` of the JAX
+# package)
 BEST_METRIC = {"classification": "instance_acc",
                "partseg": "instance_miou", "semseg": "miou",
                "fusion_cls": "instance_acc", "fusion_semseg": "miou"}
@@ -61,10 +77,16 @@ class TrainConfig:
     # semseg and fusion_semseg classes (S3DIS: 13)
     seg_classes: int = 13
     seed: int = 0
+    # the run directory's root; run_name None: a fresh time-stamped run
+    log_dir: str = "log"
+    run_name: Optional[str] = None
     train_size: int = 512
     test_size: int = 128
     log_every: int = 10
     eval_every: int = 1
+    checkpoint: bool = True
+    # restore the newest checkpoint of run_name's run and go on from there
+    resume: bool = False
     augmentations: Optional[Sequence[str]] = None
     class_weights: Optional[Sequence[float]] = None
     image_hw: tuple = (64, 64)
@@ -203,6 +225,59 @@ class Trainer:
             self.eval_model, self.spec.loss, self.task, self.num_classes,
             class_weights=cw, num_category=cfg.num_category, **eval_kwargs)
         self.history = []
+        # train steps taken over the run, resumed ones included
+        self.step = 0
+
+        self.run_dir = create_run_dir(cfg.log_dir, self.task, cfg.run_name)
+        self.log = MetricsLogger(self.run_dir)
+        self.ckpt = self.ckpt_latest = None
+        if cfg.checkpoint:
+            self.ckpt = CheckpointManager(
+                os.path.join(self.run_dir, "checkpoints"),
+                best_metric=BEST_METRIC[self.task])
+            # best-metric retention can drop the newest state when the
+            # best epochs came early; this one keeps it for resume
+            self.ckpt_latest = CheckpointManager(
+                os.path.join(self.run_dir, "checkpoints_latest"),
+                max_to_keep=1)
+        resume_from = None
+        if cfg.resume and self.ckpt_latest is not None:
+            if self.ckpt_latest.latest_step() is not None:
+                resume_from = self.ckpt_latest
+            elif self.ckpt.latest_step() is not None:
+                resume_from = self.ckpt
+        self.start_epoch = 0
+        if resume_from is not None:
+            # read on the host, as saved; loading copies the model's and
+            # the optimizer's tensors onto the model's device
+            self.step = load_train_state(
+                resume_from.restore(map_location="cpu"), self.model,
+                self.optimizer, self.generator, self.fps_generator)
+            self.start_epoch = self.step // max(
+                self.train_pipe.steps_per_epoch(), 1)
+            self.log.info("resumed from step %d (epoch %d)", self.step,
+                          self.start_epoch)
+        elif cfg.resume:
+            # without run_name the run directory is a fresh one: training
+            # from scratch there would drop the run meant to go on
+            self.close()
+            raise SystemExit(
+                f"resume: no checkpoint found under {self.run_dir}; pass the "
+                "run_name of the run to resume (and keep checkpointing on)")
+
+    def train_state(self) -> dict:
+        """What a checkpoint of this run holds
+        (``training.state.make_train_state``)."""
+        return make_train_state(self.model, self.optimizer, self.step,
+                                self.generator, self.fps_generator)
+
+    def close(self):
+        """Close the run's log files; the logger is process-wide, so a
+        process that builds many Trainers should close each."""
+        self.log.close()
+        if self.ckpt is not None:
+            self.ckpt.close()
+            self.ckpt_latest.close()
 
     # ------------------------------------------------------------- epochs
 
@@ -216,6 +291,7 @@ class Trainer:
         last = self.train_pipe.steps_per_epoch()
         for i, batch in enumerate(self.train_pipe.epoch(epoch)):
             m = self.train_step(batch, lr, bn_m)
+            self.step += 1
             # the final step is always recorded, so a short epoch still
             # reports a loss (each record waits for the device)
             if (i + 1) % cfg.log_every == 0 or (i + 1) == last:
@@ -279,12 +355,19 @@ class Trainer:
         best = -1.0
         best_key = BEST_METRIC[self.task]
         final_eval = {}
-        for epoch in range(self.cfg.epochs):
+        for epoch in range(self.start_epoch, self.cfg.epochs):
             tm = self.train_epoch(epoch)
+            self.log.log_metrics(epoch, tm, prefix="train/")
             em = {}
             if (epoch + 1) % self.cfg.eval_every == 0:
                 em = self.evaluate()
                 final_eval = em
+                self.log.log_metrics(epoch, em, prefix="eval/")
+                if self.ckpt is not None:
+                    state = self.train_state()
+                    self.ckpt.save(self.step, state,
+                                   metrics={best_key: em[best_key]})
+                    self.ckpt_latest.save(self.step, state)
                 best = max(best, em[best_key])
             self.history.append({"epoch": epoch, "train": tm, "eval": em})
         final_eval[f"best_{best_key}"] = best

@@ -12,10 +12,13 @@ the fusion tasks take the points, the image and the camera (K, R, t), with
 the calib-aware augmentations. The target is ``batch["label"]`` [B] for
 ``classification`` and ``fusion_cls``, ``batch["seg"]`` [B,N] for
 ``partseg``, ``semseg`` and ``fusion_semseg``, whose metrics count points.
+The vote steps (``make_vote_*_step``) ensemble eval forwards over rotated
+or reordered copies of a batch.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -175,5 +178,157 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
         return {"loss": loss, "correct": hit.sum(), "count": count,
                 "cm": M.confusion_matrix(pred, target, num_classes,
                                          weights=wm)}
+
+    return step
+
+
+# ------------------------------------------------------------ vote eval
+#
+# Test-time vote ensembling (``steps.py:235-356`` of the JAX package): the
+# eval forward runs num_votes times on transformed copies of the batch and
+# the class probabilities are summed; vote 0 is the batch as it is. The JAX
+# steps draw each vote's transform from fold_in(key, vote); here the draws
+# are arguments, made by ``draw_vote_angles`` / ``draw_vote_perms`` from a
+# generator, or given (the tests give JAX's own). Each step runs the model
+# in eval mode without gradients, on the kernel path on the card (the bf16
+# forwards take the fused SA and FP kernels), and returns int32 predictions
+# as JAX's do; ``return_probs=True`` also returns the summed probabilities.
+
+
+def draw_vote_angles(generator: Optional[torch.Generator], num_votes: int,
+                     batch_size: int, device=None) -> torch.Tensor:
+    """Rotation angles of votes 1 .. num_votes-1, [num_votes-1, B],
+    U(0, 2 pi)."""
+    u = torch.rand((num_votes - 1, batch_size), generator=generator,
+                   device=device)
+    return u * 2.0 * math.pi
+
+
+def draw_vote_perms(generator: Optional[torch.Generator], num_votes: int,
+                    batch_size: int, npoint: int,
+                    device=None) -> torch.Tensor:
+    """Point orders of votes 1 .. num_votes-1, one permutation a cloud,
+    [num_votes-1, B, N] int64."""
+    u = torch.rand((num_votes - 1, batch_size, npoint), generator=generator,
+                   device=device)
+    return torch.argsort(u, dim=-1)
+
+
+def _check_draws(draws: torch.Tensor, num_votes: int) -> None:
+    if draws.shape[0] != num_votes - 1:
+        raise ValueError(f"{num_votes} votes take {num_votes - 1} draws "
+                         f"(vote 0 is the batch as it is), got "
+                         f"{draws.shape[0]}")
+
+
+def _vote_result(probs: torch.Tensor, pred: torch.Tensor,
+                 return_probs: bool):
+    pred = pred.to(torch.int32)
+    return (pred, probs) if return_probs else pred
+
+
+def _shuffle_vote_probs(probs_of: Callable, points: torch.Tensor,
+                        perms: torch.Tensor) -> torch.Tensor:
+    """Per-point probabilities summed over the batch as it is and each
+    reordering ``perms`` [V-1, B, N] of its points, every vote's put back
+    in the original order (``steps.py:258-274``): a new order starts FPS
+    from another point, so the groupings change."""
+    probs = probs_of(points)
+    C = points.shape[-1]
+    for perm in perms:
+        shuffled = torch.gather(points, 1, perm[..., None].expand(-1, -1, C))
+        p = probs_of(shuffled)
+        inv = torch.argsort(perm, dim=1)
+        probs = probs + torch.gather(
+            p, 1, inv[..., None].expand(-1, -1, p.shape[-1]))
+    return probs
+
+
+def make_vote_eval_step(model: torch.nn.Module,
+                        num_votes: int = 3) -> Callable:
+    """Classification votes (``steps.py:332-356``). Returns
+    step(points, angles[, return_probs]) -> pred [B]: the probabilities of
+    the cloud as it is plus those of the cloud turned about Y by each of
+    ``angles`` [V-1, B] (normals in channels 3:6 turned with it)."""
+
+    @torch.no_grad()
+    def step(points, angles, return_probs: bool = False):
+        _check_draws(angles, num_votes)
+        model.eval()
+        probs = torch.exp(model(points)[0])
+        for angle in angles:
+            rotated = aug.rotate_point_cloud(points, angle,
+                                             rotate_normals=True)
+            probs = probs + torch.exp(model(rotated)[0])
+        return _vote_result(probs, torch.argmax(probs, -1), return_probs)
+
+    return step
+
+
+def make_vote_partseg_step(model: torch.nn.Module, num_votes: int,
+                           num_category: int, part_start: torch.Tensor,
+                           part_count: torch.Tensor) -> Callable:
+    """Part-segmentation votes (``steps.py:235-255``). Returns
+    step(points, cat, perms[, return_probs]) -> pred [B, N]: per-point
+    probabilities summed over the shuffle votes of ``perms`` [V-1, B, N],
+    then the argmax among the parts of each shape's category
+    (``part_start`` / ``part_count`` [num_category])."""
+
+    @torch.no_grad()
+    def step(points, cat, perms, return_probs: bool = False):
+        _check_draws(perms, num_votes)
+        model.eval()
+        cat = cat.long()
+        onehot = torch.nn.functional.one_hot(cat, num_category).to(
+            points.dtype)
+        probs = _shuffle_vote_probs(
+            lambda pts: torch.exp(model(pts, onehot)[0]), points, perms)
+        pred = M.masked_part_argmax(torch.log(probs + 1e-12),
+                                    part_start[cat], part_count[cat])
+        return _vote_result(probs, pred, return_probs)
+
+    return step
+
+
+def make_vote_fusion_cls_step(model: torch.nn.Module,
+                              num_votes: int = 3) -> Callable:
+    """Multimodal classification votes (``steps.py:277-308``). Returns
+    step(points, image, K, R, t, angles[, return_probs]) -> pred [B]: each
+    vote turns the cloud (normals too) about Y by rot and gives the model
+    the extrinsics R' = R rot^T, so the camera-frame points, the projection
+    and the image features do not move; only the point trunk sees another
+    pose."""
+
+    @torch.no_grad()
+    def step(points, image, K, R, t, angles, return_probs: bool = False):
+        _check_draws(angles, num_votes)
+        model.eval()
+        probs = torch.exp(model(points, image, K, R, t)[0])
+        for angle in angles:
+            rot = aug._rot_y(angle)
+            pts = aug._apply_rot(points, rot, True)
+            # R'[i,k] = sum_j R[i,j] rot[k,j]
+            Rv = aug._rotate(R, rot)
+            probs = probs + torch.exp(model(pts, image, K, Rv, t)[0])
+        return _vote_result(probs, torch.argmax(probs, -1), return_probs)
+
+    return step
+
+
+def make_vote_fusion_semseg_step(model: torch.nn.Module,
+                                 num_votes: int = 3) -> Callable:
+    """Multimodal per-point votes (``steps.py:311-329``). Returns
+    step(points, image, K, R, t, perms[, return_probs]) -> pred [B, N]:
+    shuffle votes as part segmentation's; the image branch and the
+    per-point projection do not depend on the order, so the camera stays."""
+
+    @torch.no_grad()
+    def step(points, image, K, R, t, perms, return_probs: bool = False):
+        _check_draws(perms, num_votes)
+        model.eval()
+        probs = _shuffle_vote_probs(
+            lambda pts: torch.exp(model(pts, image, K, R, t)[0]), points,
+            perms)
+        return _vote_result(probs, torch.argmax(probs, -1), return_probs)
 
     return step

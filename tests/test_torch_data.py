@@ -121,8 +121,147 @@ def test_draws_come_from_the_generator():
     assert torch.equal(e, a) and torch.equal(Re, R)
     angle = aug.draw_rotation(torch.Generator().manual_seed(3), b)
     assert bool(((angle >= 0) & (angle <= 2 * np.pi)).all())
-    with pytest.raises(NotImplementedError, match="jitter"):
-        aug.augment_fusion_batch(None, b, R, ("jitter_point_cloud",))
+    # every op of the JAX registry is ported now: jitter draws from the
+    # generator too, and only an unknown name is refused
+    j1, _ = aug.augment_fusion_batch(torch.Generator().manual_seed(1), b, R,
+                                     ("jitter_point_cloud",))
+    j2, _ = aug.augment_fusion_batch(torch.Generator().manual_seed(1), b, R,
+                                     ("jitter_point_cloud",))
+    assert torch.equal(j1, j2) and not torch.equal(j1, b)
+    with pytest.raises(KeyError, match="unknown augmentation"):
+        aug.augment_fusion_batch(None, b, R, ("no_such_op",))
+
+
+def _hp(fn, *args):
+    """A JAX op under f32 matmuls (the perturbation composes Rz Ry Rx with
+    the default precision)."""
+    with jax.default_matmul_precision("float32"):
+        return np.asarray(fn(*args))
+
+
+@pytest.mark.parametrize("C,normals", [(3, False), (6, False), (6, True),
+                                       (9, True)])
+def test_rotate_point_cloud_apply_matches_jax(C, normals):
+    """The Y rotation for the JAX op's own angles within 1e-6 (sin/cos and
+    the three-term sums may round apart in the last bit); with
+    ``rotate_normals`` channels 3:6 turn with the same matrix as the xyz,
+    and the channels past 6 stay."""
+    b = _batch(9, C=C)
+    key = jax.random.PRNGKey(10)
+    angle = np.array(jax.random.uniform(key, (4,)) * 2.0 * jnp.pi)
+    want = _hp(lambda: jaug.rotate_point_cloud(key, jnp.asarray(b),
+                                               rotate_normals=normals))
+    got = aug.rotate_point_cloud(torch.from_numpy(b), torch.from_numpy(angle),
+                                 rotate_normals=normals).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    if normals:
+        turned = aug.rotate_point_cloud(torch.from_numpy(b[..., 3:6].copy()),
+                                        torch.from_numpy(angle)).numpy()
+        np.testing.assert_array_equal(got[..., 3:6], turned)
+        np.testing.assert_array_equal(got[..., 6:], b[..., 6:])
+    else:
+        np.testing.assert_array_equal(got[..., 3:], b[..., 3:])
+    # a rotation keeps each point's distance from the origin
+    np.testing.assert_allclose(np.linalg.norm(got[..., :3], axis=-1),
+                               np.linalg.norm(b[..., :3], axis=-1),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("C,normals", [(3, False), (6, True)])
+def test_rotate_perturbation_apply_matches_jax(C, normals):
+    b = _batch(11, C=C)
+    key = jax.random.PRNGKey(12)
+    angles = np.array(jnp.clip(0.06 * jax.random.normal(key, (4, 3)),
+                               -0.18, 0.18))
+    assert np.abs(angles).max() <= 0.18
+    want = _hp(lambda: jaug.rotate_perturbation_point_cloud(
+        key, jnp.asarray(b), rotate_normals=normals))
+    got = aug.rotate_perturbation_point_cloud(
+        torch.from_numpy(b), torch.from_numpy(angles),
+        rotate_normals=normals).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    draw = aug.draw_rotate_perturbation(torch.Generator().manual_seed(0),
+                                        torch.from_numpy(b))
+    assert draw.shape == (4, 3) and float(draw.abs().max()) <= 0.18
+
+
+@pytest.mark.parametrize("C", [3, 6])
+def test_jitter_apply_matches_jax(C):
+    b = _batch(13, C=C)
+    key = jax.random.PRNGKey(14)
+    noise = np.array(jnp.clip(0.01 * jax.random.normal(key, (4, 64, 3)),
+                              -0.05, 0.05))
+    want = np.asarray(jaug.jitter_point_cloud(key, jnp.asarray(b)))
+    got = aug.jitter_point_cloud(torch.from_numpy(b),
+                                 torch.from_numpy(noise)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[..., 3:], b[..., 3:])
+    draw = aug.draw_jitter(torch.Generator().manual_seed(0),
+                           torch.from_numpy(b))
+    assert draw.shape == (4, 64, 3) and float(draw.abs().max()) <= 0.05
+
+
+def test_shuffle_points_apply_matches_jax():
+    """One permutation for the whole batch, exactly JAX's."""
+    b = _batch(15, C=6)
+    key = jax.random.PRNGKey(16)
+    perm = np.array(jax.random.permutation(key, 64))
+    want = np.asarray(jaug.shuffle_points(key, jnp.asarray(b)))
+    got = aug.shuffle_points(torch.from_numpy(b), torch.from_numpy(perm))
+    np.testing.assert_array_equal(got.numpy(), want)
+    draw = aug.draw_shuffle(torch.Generator().manual_seed(0),
+                            torch.from_numpy(b))
+    assert torch.equal(draw.sort().values, torch.arange(64))
+
+
+@pytest.mark.parametrize("C", [3, 6])
+def test_pc_normalize_matches_jax(C):
+    b = _batch(17, C=C) * 3.0 + 1.5
+    want = np.asarray(jaug.pc_normalize(jnp.asarray(b)))
+    got = aug.pc_normalize(torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert np.allclose(np.linalg.norm(got[..., :3], axis=-1).max(1), 1.0)
+    # by name, as the other ops: it has no draw
+    named = aug.augment_batch(None, torch.from_numpy(b), ("pc_normalize",))
+    np.testing.assert_array_equal(named.numpy(), got)
+
+
+def test_registry_holds_every_jax_op():
+    """Every name of the JAX registry is ported, and a pipeline of all of
+    them draws from the generator alone."""
+    assert set(jaug._REGISTRY) <= set(aug._REGISTRY)
+    assert set(jaug._CALIB_REGISTRY) == set(aug._CALIB_REGISTRY)
+    b = torch.from_numpy(_batch(18, C=6))
+    names = sorted(jaug._REGISTRY)
+    x = aug.augment_batch(torch.Generator().manual_seed(4), b, names)
+    y = aug.augment_batch(torch.Generator().manual_seed(4), b, names)
+    assert torch.equal(x, y) and x.shape == b.shape
+
+
+HOST_CASES = {"pc_normalize": {}, "rotate_point_cloud": {"rng": True},
+              "jitter_point_cloud": {"rng": True},
+              "shift_point_cloud": {"rng": True},
+              "random_scale_point_cloud": {"rng": True},
+              "random_point_dropout": {"rng": True}}
+
+
+@pytest.mark.parametrize("name", sorted(HOST_CASES))
+def test_host_np_matches_jax(name):
+    """``host_np`` is JAX's numpy twin bit for bit under the same
+    ``np.random.RandomState``."""
+    assert sorted(n for n in vars(aug.host_np) if not n.startswith("_")) \
+        == sorted(n for n in vars(jaug.host_np) if not n.startswith("_")) \
+        == sorted(HOST_CASES)
+    b = _batch(19, C=6) * 2.0
+
+    def run(cls):
+        kw = ({"rng": np.random.RandomState(20)} if HOST_CASES[name]
+              else {})
+        return getattr(cls, name)(b.copy(), **kw)
+
+    want, got = run(jaug.host_np), run(aug.host_np)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 def test_rotate_point_cloud_z_with_calib_matches_jax():

@@ -441,12 +441,12 @@ def test_classification_train_step_matches_jax(cls_step_f64):
 
 @pytest.mark.parametrize("name,dtype", [("pointnet2_cls_knn", "bfloat16"),
                                         ("pointnet2_cls_ssg", "float32")])
-def test_trainer_fit_pointnet2_cls_on_cpu(name, dtype):
+def test_trainer_fit_pointnet2_cls_on_cpu(name, dtype, tmp_path):
     """One tiny epoch of the classification task: plain SyntheticModelNet
     clouds (no image), the cls augmentations, finite metrics."""
     cfg = TrainConfig(model=name, epochs=1, batch_size=4, npoint=128,
                       num_class=4, train_size=8, test_size=6, device="cpu",
-                      dtype=dtype, bn_refresh_steps=1)
+                      dtype=dtype, bn_refresh_steps=1, log_dir=str(tmp_path))
     tr = Trainer(cfg)
     assert tr.spec.task == "classification"
     out = tr.fit()

@@ -476,12 +476,13 @@ def test_partseg_request_is_the_test_split():
 # ------------------------------------------------------ Trainer
 
 
-def test_trainer_fit_partseg_on_cpu(monkeypatch):
+def test_trainer_fit_partseg_on_cpu(monkeypatch, tmp_path):
     """One epoch of pointnet2_part_seg_msg at the registry's 2,048 points on
     the CPU: finite loss, point accuracy, instance and class mIoU; the
     default device is the card, and without one the Trainer raises."""
     cfg = TrainConfig(model="pointnet2_part_seg_msg", epochs=1, batch_size=2,
-                      npoint=2048, train_size=2, test_size=3, device="cpu")
+                      npoint=2048, train_size=2, test_size=3, device="cpu",
+                      log_dir=str(tmp_path))
     tr = Trainer(cfg)
     assert tr.spec.task == "partseg" and tr.num_classes == 50
     out = tr.fit()

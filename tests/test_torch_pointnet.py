@@ -106,11 +106,11 @@ def test_registry_matches_jax():
 
 
 @pytest.mark.parametrize("name", sorted(jax_available()))
-def test_trainer_builds_every_model(name):
+def test_trainer_builds_every_model(name, tmp_path):
     """Trainer(TrainConfig(model=name, device="cpu")) builds each registry
     entry: its task is one of the ported steps' and its model has
     parameters."""
-    tr = Trainer(TrainConfig(model=name, device="cpu"))
+    tr = Trainer(TrainConfig(model=name, device="cpu", log_dir=str(tmp_path)))
     assert tr.task == jax_get_model(name).task and tr.task in steps.TASKS
     assert sum(p.numel() for p in tr.model.parameters()) > 0
 
@@ -457,14 +457,14 @@ def test_pointnet_cls_train_step_matches_jax(cls_step_f64):
 @pytest.mark.parametrize("name,dtype", [("pointnet_cls", "bfloat16"),
                                         ("pointnet_part_seg", "float32"),
                                         ("pointnet_sem_seg", "bfloat16")])
-def test_trainer_fit_pointnet_on_cpu(name, dtype):
+def test_trainer_fit_pointnet_on_cpu(name, dtype, tmp_path):
     """One tiny epoch of a PointNet model on its task's synthetic data:
     finite loss and the task's headline metric in [0, 1]."""
     task = get_model(name).task
     npoint = {"classification": 128, "partseg": 128, "semseg": 256}[task]
     cfg = TrainConfig(model=name, epochs=1, batch_size=2, npoint=npoint,
                       num_class=4, train_size=4, test_size=3, device="cpu",
-                      dtype=dtype, bn_refresh_steps=1)
+                      dtype=dtype, bn_refresh_steps=1, log_dir=str(tmp_path))
     tr = Trainer(cfg)
     out = tr.fit()
     assert np.isfinite(tr.history[0]["train"]["loss"])

@@ -386,11 +386,12 @@ def test_semseg_data_and_augmentation_match_jax():
                            batch["points"][..., :2].numpy())
 
 
-def test_semseg_eval_reduction_matches_jax_metrics():
+def test_semseg_eval_reduction_matches_jax_metrics(tmp_path):
     """The Trainer's semseg eval reduction: point accuracy and mIoU from the
     summed confusion matrix, as JAX's ``iou_from_confusion``."""
     cfg = TrainConfig(model="pointnet_sem_seg", epochs=1, batch_size=2,
-                      npoint=128, train_size=2, test_size=3, device="cpu")
+                      npoint=128, train_size=2, test_size=3, device="cpu",
+                      log_dir=str(tmp_path))
     tr = Trainer(cfg)
     cms = []
     step = tr.eval_step
@@ -406,14 +407,14 @@ def test_semseg_eval_reduction_matches_jax_metrics():
 @pytest.mark.parametrize("name,dtype", [("pointnet2_sem_seg", "bfloat16"),
                                         ("pointnet2_sem_seg_msg", "float32"),
                                         ("pointnet2_cls_msg", "bfloat16")])
-def test_trainer_fit_on_cpu(name, dtype):
+def test_trainer_fit_on_cpu(name, dtype, tmp_path):
     """One tiny epoch: finite loss and the task's headline metric (mIoU for
     semseg) in [0, 1]."""
     task = get_model(name).task
     cfg = TrainConfig(model=name, epochs=1, batch_size=2,
                       npoint=256 if task == "semseg" else 128, num_class=4,
                       train_size=4, test_size=3, device="cpu", dtype=dtype,
-                      bn_refresh_steps=1)
+                      bn_refresh_steps=1, log_dir=str(tmp_path))
     tr = Trainer(cfg)
     out = tr.fit()
     assert tr.num_classes == (cfg.seg_classes if task == "semseg" else 4)

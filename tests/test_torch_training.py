@@ -12,6 +12,8 @@ their plain twins; ``chip_smoke.py`` holds the kernels to the same twins on
 the card. The JAX side runs with float32 matmuls.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -608,12 +610,12 @@ def test_optimizer_matches_optax_adam_and_sgd():
 # ---------------------------------------------------------------- Trainer
 
 
-def test_trainer_fit_one_tiny_epoch_on_cpu():
+def test_trainer_fit_one_tiny_epoch_on_cpu(tmp_path):
     cfg = TrainConfig(model="fusion_cls", epochs=1, batch_size=4,
                       npoint=64, num_class=4, train_size=8, test_size=6,
                       image_hw=(16, 16),
                       device="cpu", dtype="bfloat16", bn_refresh_steps=1,
-                      fps_random_start=True)
+                      fps_random_start=True, log_dir=str(tmp_path))
     tr = Trainer(cfg)
     out = tr.fit()
     assert np.isfinite(tr.history[0]["train"]["loss"])
@@ -625,13 +627,13 @@ def test_trainer_fit_one_tiny_epoch_on_cpu():
         assert torch.equal(a, b), n
 
 
-def test_trainer_fit_fusion_sem_seg_on_cpu():
+def test_trainer_fit_fusion_sem_seg_on_cpu(tmp_path):
     """One tiny epoch of fusion_sem_seg (bf16 mixed precision, the
     calib-aware rotation): finite loss, point accuracy and mIoU."""
     cfg = TrainConfig(model="fusion_sem_seg", epochs=1, batch_size=2,
                       npoint=128, seg_classes=13, train_size=4, test_size=3,
                       image_hw=(32, 32), device="cpu", dtype="bfloat16",
-                      bn_refresh_steps=1)
+                      bn_refresh_steps=1, log_dir=str(tmp_path))
     tr = Trainer(cfg)
     out = tr.fit()
     assert tr.spec.task == "fusion_semseg"
@@ -648,13 +650,27 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Checkpointing, resume and the run-directory logger are not ported:
-    TrainConfig has no fields for them. Every task of the registry is
-    ported now, so an unknown task name is refused as unknown."""
-    with pytest.raises(TypeError, match="checkpoint"):
-        TrainConfig(device="cpu", checkpoint=True)
-    for field in ("resume", "log_dir"):
-        with pytest.raises(TypeError, match=field):
-            TrainConfig(device="cpu", **{field: "x"})
+    """Every task of the registry is ported, so an unknown task name is
+    refused as unknown (checkpointing, resume and the run directory, once
+    refused here, are ported: see the test below)."""
     with pytest.raises(ValueError, match="unknown task"):
         steps.make_train_step(None, None, None, "vote_partseg")
+
+
+def test_trainer_run_fields_keep_jax_defaults(tmp_path):
+    """log_dir, run_name, checkpoint and resume exist with JAX's defaults,
+    and a Trainer makes its run directory under log_dir, with JAX's
+    layout, and its two checkpoint managers."""
+    from mm3d_tpu.training.loop import TrainConfig as JaxConfig
+
+    for field in ("log_dir", "run_name", "checkpoint", "resume"):
+        assert getattr(TrainConfig(), field) == getattr(JaxConfig(), field)
+    tr = Trainer(TrainConfig(model="pointnet_cls", npoint=32, batch_size=2,
+                             train_size=2, test_size=2, device="cpu",
+                             log_dir=str(tmp_path), run_name="run"))
+    assert tr.run_dir == str(tmp_path / "classification" / "run")
+    assert sorted(os.listdir(tr.run_dir)) == ["checkpoints",
+                                              "checkpoints_latest", "logs"]
+    assert tr.ckpt.best_metric == "instance_acc"
+    assert tr.ckpt_latest.max_to_keep == 1 and tr.start_epoch == 0
+    tr.close()
