@@ -169,7 +169,33 @@ that goes wrong:
    ms a vote step (CUDA events, median of 5 after 2 warm-ups). Every
    Trainer of phases 4-5a writes its run directory under one temporary
    directory, removed at the end;
-6. prints the ``{"kernels": [...]}`` line, then, last, the
+6. the entry points, ``python -m mm3d_tpu_torch.train`` / ``.test``,
+   through their ``main(argv)`` at full width, each call's launches
+   counted from 0, on trees written under one temporary directory (removed
+   at the end) in the canonical formats; the native parser and renderer
+   must build from native/*.cpp. 6a: a multimodal ModelNet40 tree (40
+   class folders, 72 train and 48 test shapes of 10,000 x,y,z,nx,ny,nz
+   rows, 64x64 views); the train split parsed natively (shapes/s);
+   fusion_cls trained 2 epochs in bf16 at B=24 (epoch seconds); ``test``
+   in bf16 and fp32 with 3 votes, whose instance and vote accuracy must
+   equal ``Trainer.evaluate`` and the vote steps on the run's best
+   checkpoint in this process (seconds a vote pass); ``test --export`` in
+   both dtypes, the artifact against make_predictor on one test batch
+   (fp32 max|d| <= 1e-5, bf16 argmax agreement 1.0); and one ``python -m
+   mm3d_tpu_torch.test`` in a new process. 6b: an S3DIS tree of four rooms
+   of 500,000 points; a lineage .pth of pointnet2_sem_seg (imported bit for
+   bit) fine-tuned one epoch at B=24 x 4,096; ``test --scene area`` (the
+   two area-5 rooms) in bf16, fp32 and fp32 on the plain path: coverage
+   equal, fp32 kernel vs plain predictions equal past a 1e-3 top-two
+   margin and point_acc / mIoU within 1e-3, no launch on the plain path,
+   bf16 vs fp32 per-point agreement >= 0.95; blocks a room, seconds a room,
+   points/s; one room's predictions rendered to a PNG natively. 6c:
+   fusion_sem_seg trained one short epoch, then ``test --scene synthetic``
+   on a 500,000-point room in bf16 and fp32 (the bilinear kernel on the
+   CLI path): coverage equal, agreement >= 0.95. 6d: pointnet2_cls_knn on
+   the 6a tree's points, one epoch and a bf16 ``test`` (the given-index
+   fused SA on a CLI path);
+7. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package. The details also go to
@@ -3066,6 +3092,424 @@ def vote_eval(torch, ops, cuda_kernels, dev):
     return out
 
 
+# ------------------------------------------------------------ phase 6
+# the entry points: python -m mm3d_tpu_torch.train / .test, called through
+# their main(argv) in this process (the kernels built once), on trees
+# written here in the canonical on-disk formats
+
+# the ModelNet40 categories, the names of the tree's class folders (one has
+# an underscore, which a shape id's class name keeps)
+MODELNET40 = (
+    "airplane", "bathtub", "bed", "bench", "bookshelf", "bottle", "bowl",
+    "car", "chair", "cone", "cup", "curtain", "desk", "door", "dresser",
+    "flower_pot", "glass_box", "guitar", "keyboard", "lamp", "laptop",
+    "mantel", "monitor", "night_stand", "person", "piano", "plant", "radio",
+    "range_hood", "sink", "sofa", "stairs", "stool", "table", "tent",
+    "toilet", "tv_stand", "vase", "wardrobe", "xbox")
+# 6a: a multimodal ModelNet40 tree, 72 train and 48 test shapes of 10,000
+# x,y,z,nx,ny,nz rows (the normal_resampled files' size): 3 train steps of
+# 24 and 2 eval batches an epoch
+CLI_TRAIN_SHAPES, CLI_TEST_SHAPES, CLI_ROWS = 72, 48, 10_000
+# 6b: an S3DIS tree of four rooms of 500,000 points (the size of a real
+# S3DIS room), two of them in the held-out area 5
+ROOM_POINTS = 500_000
+ROOMS = ("Area_1_office_1", "Area_2_office_1", "Area_5_office_1",
+         "Area_5_conferenceRoom_1")
+# the rooms' batch of blocks, and fusion_sem_seg's short synthetic run (two
+# train steps, one eval batch)
+ROOM_BATCH = 16
+FSS_TRAIN_SIZE, FSS_TEST_SIZE = 48, 24
+# room predictions, fp32 kernel path vs plain path: equal wherever the
+# summed votes' top-two margin exceeds it; point_acc and mIoU within it
+ROOM_MARGIN = 1e-3
+
+
+def write_modelnet_tree(root):
+    """A multimodal ModelNet40 tree: the class folders of ``MODELNET40``,
+    ``<class>_NNNN.txt`` shapes (synthetic clouds of CLI_ROWS points with
+    normals, rows shuffled, as the resampled files' rows come in no order),
+    the split lists, and ``views_<split>/<index>.npz``: a 64x64 depth view
+    of the cloud the loader gives (its first NPOINT rows, normalised) with
+    its camera, rendered by the port's ``render_depth_image``."""
+    from mm3d_tpu_torch.data import synthetic as syn
+    from mm3d_tpu_torch.data.loaders import pc_normalize
+    os.makedirs(root)
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("\n".join(MODELNET40) + "\n")
+    K = syn.default_intrinsics(IMAGE_HW)
+    seen = {c: 0 for c in MODELNET40}
+    row = ",".join(["%.6f"] * 6) + "\n"
+    for split, size in (("train", CLI_TRAIN_SHAPES),
+                        ("test", CLI_TEST_SHAPES)):
+        gen = syn.SyntheticModelNet(num_classes=NUM_CLASS, npoints=CLI_ROWS,
+                                    normals=True, size=size, split=split)
+        views = os.path.join(root, f"views_{split}")
+        os.makedirs(views)
+        ids = []
+        for i in range(size):
+            pts, label = gen[i]
+            rng = np.random.RandomState(1000 * (split == "test") + i)
+            pts = pts[rng.permutation(len(pts))]
+            cls = MODELNET40[label]
+            seen[cls] += 1
+            sid = f"{cls}_{seen[cls]:04d}"
+            ids.append(sid)
+            os.makedirs(os.path.join(root, cls), exist_ok=True)
+            with open(os.path.join(root, cls, sid + ".txt"), "w") as f:
+                f.write((row * len(pts)) % tuple(pts.ravel().tolist()))
+            xyz = pc_normalize(pts[:NPOINT, :3])
+            R, t = syn.random_viewpoint_extrinsics(rng)
+            np.savez(os.path.join(views, f"{i}.npz"),
+                     image=syn.render_depth_image(xyz, K, R, t, IMAGE_HW),
+                     K=K, R=R, t=t)
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+
+
+def write_s3dis_tree(root):
+    """The ``ROOMS`` as preprocessed S3DIS rooms, [N,7] = xyz, rgb in
+    0..255, label: each a ``synthetic_room`` of ROOM_POINTS points."""
+    from mm3d_tpu_torch.data.synthetic import synthetic_room
+    os.makedirs(root)
+    for k, name in enumerate(ROOMS):
+        xyz, rgb, seg = synthetic_room(ROOM_POINTS, seed=k)
+        np.save(os.path.join(root, name + ".npy"),
+                np.concatenate([xyz, np.round(rgb * 255.0),
+                                seg[:, None]], 1).astype(np.float32))
+
+
+def write_lineage_ckpt(torch, path):
+    """A lineage ``.pth`` of pointnet2_sem_seg: the port's
+    ``export_state_dict`` of a seeded init in the lineage's train-script
+    wrapper, with DataParallel's ``module.`` prefixes. Returns the model."""
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.utils.torch_import import export_state_dict
+    model = init_params(get_model("pointnet2_sem_seg").builder(
+        num_class=SEG_CLASSES), 7)
+    sd = export_state_dict("pointnet2_sem_seg", model)
+    torch.save({"model_state_dict": {
+        f"module.{k}": torch.from_numpy(np.ascontiguousarray(v))
+        for k, v in sd.items()}}, path)
+    return model
+
+
+class RoomVotes:
+    """Records, while a ``--scene`` run lasts, each room's summed votes and
+    its blocks (``scene_eval._vote_loop`` wrapped; the run is unchanged)."""
+
+    def __init__(self):
+        from mm3d_tpu_torch.training import scene_eval
+        self.mod, self.orig, self.rooms = scene_eval, scene_eval._vote_loop, []
+
+    def __enter__(self):
+        def loop(predict_fn, arrays, pidx, nblocks, *args):
+            votes = self.orig(predict_fn, arrays, pidx, nblocks, *args)
+            self.rooms.append({"blocks": int(nblocks), "votes": votes})
+            return votes
+        self.mod._vote_loop = loop
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._vote_loop = self.orig
+
+
+def _margin_equal(a, b):
+    """(share of points whose argmax a and b agree, whether they agree
+    wherever a's top-two margin exceeds ROOM_MARGIN)."""
+    top2 = np.sort(a, -1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > ROOM_MARGIN
+    same = a.argmax(-1) == b.argmax(-1)
+    return float(same.mean()), bool(same[sure].all())
+
+
+def entry_points(torch, cuda_kernels, dev, work):
+    """Phase 6: the train and test CLIs at full width on trees written under
+    ``work``: 6a fusion_cls on a multimodal ModelNet40 tree (the main
+    path), 6b pointnet2_sem_seg on an S3DIS tree from a lineage checkpoint,
+    6c fusion_sem_seg on a synthetic room, 6d pointnet2_cls_knn on the 6a
+    tree's points. Each CLI call's launches are counted from 0."""
+    import argparse
+    from mm3d_tpu_torch import test as test_cli
+    from mm3d_tpu_torch import train as train_cli
+    from mm3d_tpu_torch.data import loaders, native_io
+    from mm3d_tpu_torch.serving import load_serving
+    from mm3d_tpu_torch.training import TrainConfig, Trainer, make_predictor
+    from mm3d_tpu_torch.utils import visualizer
+    from mm3d_tpu_torch.utils.checkpoint import CheckpointManager
+    from mm3d_tpu_torch.utils.jax_import import _flatten, to_jax_tree
+    from mm3d_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+    t_phase = time.perf_counter()
+    out = {"launches": expect(cuda_kernels), "runs": {}}
+    logs = os.path.join(work, "logs")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(label, main, argv):
+        cuda_kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = main(argv + ["--device", dev.type])
+        sync()
+        s = time.perf_counter() - t0
+        got = launch_counts(cuda_kernels)
+        for k, v in got.items():
+            out["launches"][k] += v
+        out["runs"][label] = {"s": s, "launches": got, "result": res}
+        print(f"cli {label}: {s:.3f} s, launches "
+              f"{ {k: v for k, v in got.items() if v} }, result {res}",
+              flush=True)
+        return res, got, s
+
+    # the host libraries, built from native/*.cpp into mm3d_tpu_torch/build
+    check(native_io.available(),
+          f"native parser did not build: {native_io.load_error()}")
+    check(visualizer.available(),
+          f"native renderer did not build: {visualizer.load_error()}")
+
+    # --- 6a: fusion_cls on a multimodal ModelNet40 tree
+    mn = os.path.join(work, "modelnet40")
+    t0 = time.perf_counter()
+    write_modelnet_tree(mn)
+    out["modelnet_write_s"] = time.perf_counter() - t0
+    paths = [p for p, _ in loaders.ModelNetDataset(mn, "train").paths]
+    t0 = time.perf_counter()
+    tables = native_io.parse_many(paths, 6)
+    parse_s = time.perf_counter() - t0
+    check(all(t.shape == (CLI_ROWS, 6) for t in tables),
+          f"native parse shapes {[t.shape for t in tables[:3]]}")
+    want = np.loadtxt(paths[0], delimiter=",", dtype=np.float32)
+    check(np.allclose(tables[0], want, rtol=1e-5, atol=1e-6),
+          "native parse differs from np.loadtxt")
+    out.update({"parse_s": parse_s, "shapes_per_s": len(paths) / parse_s})
+    print(f"6a: ModelNet40 tree written in {out['modelnet_write_s']:.2f} s; "
+          f"train split ({len(paths)} shapes x {CLI_ROWS} rows) parsed by "
+          f"the native parser in {parse_s:.4f} s, "
+          f"{out['shapes_per_s']:.1f} shapes/s", flush=True)
+    common = ["--dataset", "multimodal", "--data_root", mn, "--npoint",
+              str(NPOINT), "--batch_size", str(TRAIN_BATCH), "--num_class",
+              str(NUM_CLASS)]
+    _, got, _ = run("6a train fusion_cls bf16", train_cli.main, [
+        "--model", "fusion_cls", "--epoch", "2", "--dtype", "bfloat16",
+        "--log_dir", logs, "--run_name", "fusion_cls"] + common)
+    check(min(got["farthest_point_sample"], got["query_ball_point"],
+              got["gather_backward"]) > 0, f"6a train launches {got}")
+    run_dir = os.path.join(logs, "fusion_cls", "fusion_cls")
+    with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    out["epoch_s"] = [r["train/epoch_time_s"] for r in recs
+                      if "train/epoch_time_s" in r]
+    check(len(out["epoch_s"]) == 2, f"6a: epochs logged {recs}")
+    print(f"6a: epoch seconds {out['epoch_s']}", flush=True)
+    best = CheckpointManager(os.path.join(run_dir, "checkpoints"),
+                             best_metric="instance_acc").best_step()
+    test_ds = loaders.build_real_datasets(
+        "multimodal", mn, "fusion_cls", npoints=NPOINT, splits=("test",))[1]
+    example = None
+    for dt in ("bfloat16", "float32"):
+        res, got, _ = run(f"6a test fusion_cls {dt} votes", test_cli.main, [
+            "--model", "fusion_cls", "--log_dir", run_dir, "--dtype", dt,
+            "--num_votes", str(VOTES)] + common)
+        eval_kernel = ("fused_sa" if dt == "bfloat16"
+                       else "query_ball_point")
+        check(got[eval_kernel] > 0 and got["farthest_point_sample"] > 0,
+              f"6a test {dt} launches {got}")
+        # the same restored state, evaluated and voted in this process
+        tr = Trainer(TrainConfig(
+            model="fusion_cls", batch_size=TRAIN_BATCH, npoint=NPOINT,
+            num_class=NUM_CLASS, eval_dtype=dt, checkpoint=False,
+            log_dir=os.path.join(work, "check"), device=str(dev)),
+            test_ds=test_ds)
+        step = test_cli.restore_best(tr, run_dir)
+        check(step == best, f"6a: restored step {step}, best {best}")
+        t0 = time.perf_counter()
+        ev = tr.evaluate()
+        sync()
+        t1 = time.perf_counter()
+        voted = test_cli._eval_and_vote(
+            argparse.Namespace(num_votes=VOTES, seed=0), tr)
+        sync()
+        vote_s = (time.perf_counter() - t1) - (t1 - t0)
+        check(ev["instance_acc"] == res["instance_acc"]
+              and voted["vote_instance_acc"] == res["vote_instance_acc"],
+              f"6a {dt}: CLI {res} vs Trainer.evaluate {ev}, votes "
+              f"{voted}")
+        out[f"vote_pass_s_{dt}"] = vote_s
+        print(f"6a {dt}: restored best step {step}; instance_acc "
+              f"{ev['instance_acc']} and vote_instance_acc "
+              f"{voted['vote_instance_acc']} equal the CLI's; eval pass "
+              f"{t1 - t0:.3f} s, vote pass ({VOTES} votes) {vote_s:.3f} s",
+              flush=True)
+        if example is None:
+            example = [a.to(dev) for a in test_cli._example_args(tr)]
+        tr.close()
+    state = CheckpointManager(os.path.join(run_dir, "checkpoints")).restore(
+        best)["model"]
+    for dt, tdt in (("bfloat16", torch.bfloat16), ("float32", None)):
+        path = os.path.join(work, f"fusion_cls_{dt}.pt2")
+        run(f"6a export fusion_cls {dt}", test_cli.main, [
+            "--model", "fusion_cls", "--log_dir", run_dir, "--dtype", dt,
+            "--export", path] + common)
+        served = load_serving(path, dev.type)
+        pred = make_predictor("fusion_cls", state, dtype=tdt,
+                              device=str(dev), num_class=NUM_CLASS)
+        with torch.no_grad():
+            a = served(*example).float()
+        b = pred(*example).float()
+        if tdt is None:
+            d = float((a - b).abs().max())
+            check(d <= 1e-5, f"6a export fp32: max|d| {d} vs make_predictor")
+            out["export_fp32_max_abs"] = d
+        else:
+            agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+            check(agree == 1.0, f"6a export bf16: argmax agreement {agree}")
+            out["export_bf16_agreement"] = agree
+    print(f"6a export: fp32 max|d| {out['export_fp32_max_abs']}, bf16 "
+          f"argmax agreement {out['export_bf16_agreement']} against "
+          "make_predictor on one test batch", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mm3d_tpu_torch.test", "--model",
+         "fusion_cls", "--log_dir", run_dir, "--device", dev.type] + common,
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    out["subprocess_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0 and "instance_acc" in proc.stdout,
+          f"python -m mm3d_tpu_torch.test exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"6a: python -m mm3d_tpu_torch.test in a new process, "
+          f"{out['subprocess_s']:.2f} s: {proc.stdout.strip()[-300:]}",
+          flush=True)
+
+    # --- 6b: pointnet2_sem_seg on an S3DIS tree, from a lineage checkpoint
+    s3 = os.path.join(work, "s3dis")
+    t0 = time.perf_counter()
+    write_s3dis_tree(s3)
+    out["s3dis_write_s"] = time.perf_counter() - t0
+    pth = os.path.join(work, "pointnet2_sem_seg_lineage.pth")
+    lineage = write_lineage_ckpt(torch, pth)
+    got_tree = dict(_flatten(load_torch_checkpoint("pointnet2_sem_seg",
+                                                   lineage, pth)))
+    want_tree = dict(_flatten(to_jax_tree(lineage)))
+    check(got_tree.keys() == want_tree.keys() and all(
+        np.array_equal(got_tree[k], want_tree[k]) for k in want_tree),
+        "6b: the lineage .pth does not import bit for bit")
+    _, got, _ = run("6b train pointnet2_sem_seg fp32 from lineage",
+                    train_cli.main, [
+                        "--model", "pointnet2_sem_seg", "--dataset", "s3dis",
+                        "--data_root", s3, "--npoint", str(SCENE_NPOINT),
+                        "--batch_size", str(TRAIN_BATCH), "--epoch", "1",
+                        "--torch_ckpt", pth, "--log_dir", logs,
+                        "--run_name", "s3dis"])
+    check(min(got["gather_backward"], got["three_nn"],
+              got["three_interpolate"]) > 0, f"6b train launches {got}")
+    scene = ["--model", "pointnet2_sem_seg", "--log_dir",
+             os.path.join(logs, "semseg", "s3dis"), "--scene", "area",
+             "--data_root", s3, "--test_area", "5", "--batch_size",
+             str(ROOM_BATCH), "--npoint", str(SCENE_NPOINT)]
+    rooms = {}
+    for label, extra in (("bf16", ["--dtype", "bfloat16"]),
+                         ("fp32", ["--dtype", "float32"]),
+                         ("fp32 plain", ["--dtype", "float32", "--impl",
+                                         "torch"])):
+        with RoomVotes() as rv:
+            res, got, s = run(f"6b test --scene area {label}",
+                              test_cli.main, scene + extra)
+        rooms[label] = {"res": res, "rooms": rv.rooms, "s": s, "got": got}
+        check(res["rooms"] == 2 and len(rv.rooms) == 2,
+              f"6b {label}: {res['rooms']} rooms scored")
+    check(not any(rooms["fp32 plain"]["got"].values()),
+          f"6b: the plain path launched {rooms['fp32 plain']['got']}")
+    check(min(rooms["bf16"]["got"][k] for k in (
+        "farthest_point_sample", "fused_sa", "fused_fp")) > 0
+        and min(rooms["fp32"]["got"][k] for k in (
+            "farthest_point_sample", "query_ball_point", "fused_fp")) > 0,
+        f"6b launches {rooms['bf16']['got']} / {rooms['fp32']['got']}")
+    cov = {k: r["res"]["coverage"] for k, r in rooms.items()}
+    check(len(set(cov.values())) == 1, f"6b: coverage differs {cov}")
+    k, p = rooms["fp32"], rooms["fp32 plain"]
+    for rk, rp in zip(k["rooms"], p["rooms"]):
+        _, same = _margin_equal(rk["votes"], rp["votes"])
+        check(same, "6b: fp32 kernel and plain room predictions differ "
+                    f"past a {ROOM_MARGIN} margin")
+    for m in ("point_acc", "miou"):
+        d = abs(k["res"][m] - p["res"][m])
+        check(d <= ROOM_MARGIN, f"6b: fp32 kernel vs plain {m} differ by {d}")
+    agree = _margin_equal(
+        np.concatenate([r["votes"] for r in rooms["fp32"]["rooms"]]),
+        np.concatenate([r["votes"] for r in rooms["bf16"]["rooms"]]))[0]
+    check(agree >= 0.95, f"6b: bf16 vs fp32 per-point agreement {agree}")
+    blocks = [r["blocks"] for r in rooms["bf16"]["rooms"]]
+    out["rooms"] = {label: {"s": r["s"], "s_per_room": r["s"] / 2,
+                            "points_per_s": 2 * ROOM_POINTS / r["s"],
+                            "metrics": r["res"], "launches": r["got"]}
+                    for label, r in rooms.items()}
+    out.update({"room_blocks": blocks, "room_bf16_vs_fp32": agree})
+    print(f"6b: blocks a room {blocks} (batches of {ROOM_BATCH} x "
+          f"{SCENE_NPOINT}); coverage {cov['bf16']}; bf16 vs fp32 "
+          f"per-point agreement {agree}; " + "; ".join(
+              f"{label} {r['s'] / 2:.3f} s a room, "
+              f"{2 * ROOM_POINTS / r['s']:.0f} points/s"
+              for label, r in rooms.items()), flush=True)
+    room = sorted(f for f in os.listdir(s3) if f.startswith("Area_5_"))[0]
+    xyz, _, _ = test_cli._load_room(os.path.join(s3, room))
+    png = visualizer.show_points(
+        xyz, labels=rooms["bf16"]["rooms"][0]["votes"].argmax(-1),
+        out_path=os.path.join(work, "room.png"))
+    check(visualizer.available() and os.path.getsize(png) > 1000,
+          "6b: the room's PNG was not rendered natively")
+    print(f"6b: {room}'s predicted labels rendered by the native renderer, "
+          f"{os.path.getsize(png)} bytes of PNG", flush=True)
+
+    # --- 6c: fusion_sem_seg on one synthetic room
+    run("6c train fusion_sem_seg fp32", train_cli.main, [
+        "--model", "fusion_sem_seg", "--epoch", "1", "--batch_size",
+        str(TRAIN_BATCH), "--train_size", str(FSS_TRAIN_SIZE),
+        "--test_size", str(FSS_TEST_SIZE), "--log_dir", logs,
+        "--run_name", "fss"])
+    fss = {}
+    for dt in ("bfloat16", "float32"):
+        with RoomVotes() as rv:
+            res, got, s = run(f"6c test --scene synthetic {dt}",
+                              test_cli.main, [
+                                  "--model", "fusion_sem_seg", "--log_dir",
+                                  os.path.join(logs, "fusion_semseg", "fss"),
+                                  "--scene", "synthetic", "--scene_points",
+                                  str(ROOM_POINTS), "--batch_size",
+                                  str(ROOM_BATCH), "--dtype", dt])
+        check(got["bilinear_sample"] > 0 and got["fused_fp"] > 0,
+              f"6c {dt} launches {got}")
+        fss[dt] = {"res": res, "votes": rv.rooms[0]["votes"], "s": s,
+                   "blocks": rv.rooms[0]["blocks"]}
+    check(fss["bfloat16"]["res"]["coverage"]
+          == fss["float32"]["res"]["coverage"], "6c: coverage differs")
+    agree = _margin_equal(fss["float32"]["votes"],
+                          fss["bfloat16"]["votes"])[0]
+    check(agree >= 0.95, f"6c: bf16 vs fp32 per-point agreement {agree}")
+    out["fusion_room"] = {dt: {"s": r["s"], "blocks": r["blocks"],
+                               "metrics": r["res"]} for dt, r in fss.items()}
+    out["fusion_room_bf16_vs_fp32"] = agree
+    print(f"6c: {fss['float32']['blocks']} blocks of 2048 points; bf16 vs "
+          f"fp32 agreement {agree}; s a room bf16 "
+          f"{fss['bfloat16']['s']:.3f}, fp32 {fss['float32']['s']:.3f}",
+          flush=True)
+
+    # --- 6d: pointnet2_cls_knn on the 6a tree's points
+    knn = ["--dataset", "modelnet40", "--data_root", mn, "--npoint",
+           str(NPOINT), "--batch_size", str(TRAIN_BATCH), "--num_class",
+           str(NUM_CLASS), "--model", "pointnet2_cls_knn"]
+    run("6d train pointnet2_cls_knn fp32", train_cli.main, knn + [
+        "--epoch", "1", "--log_dir", logs, "--run_name", "knn"])
+    _, got, _ = run("6d test pointnet2_cls_knn bf16", test_cli.main, knn + [
+        "--log_dir", os.path.join(logs, "classification", "knn"), "--dtype",
+        "bfloat16"])
+    check(got["fused_sa_idx"] > 0, f"6d launches {got}")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 6: {out['s']:.1f} s; launches "
+          f"{ {k: v for k, v in out['launches'].items() if v} }", flush=True)
+    return out
+
+
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
     named (fused SA, given-index fused SA and fused FP: bf16 serving;
@@ -3201,16 +3645,23 @@ def main():
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
     voted = vote_eval(torch, ops, cuda_kernels, dev)  # 5b
+    # the trees, runs, artifacts and PNG of the CLIs, removed at the end
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli = entry_points(torch, cuda_kernels, dev, work)  # 6
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # each kernel's launches on the main paths: serving every registered
     # model but the attention-head variants (bf16 + fp32), serving the
     # exported artifacts over HTTP, one epoch of Trainer.fit of
     # fusion_cls, fusion_sem_seg, pointnet2_cls_knn, pointnet2_part_seg_msg,
     # pointnet_cls and pointnet2_sem_seg (fp32 + bf16), the resumed
-    # fusion_cls runs and the four vote steps (bf16 + fp32)
+    # fusion_cls runs, the four vote steps (bf16 + fp32) and the train and
+    # test CLIs
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
               *served_pn.values(), *served_tops.values(), artifacts, trained,
               trained_seg, trained_knn, trained_part, trained_pn,
-              trained_scene, resumed, voted)
+              trained_scene, resumed, voted, cli)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
     kernels = kernels_line(rows, main_launches)
@@ -3234,6 +3685,7 @@ def main():
                    "train_fusion_sem_seg": trained_seg,
                    "train_pointnet2_part_seg_msg": trained_part,
                    "train_resume": resumed, "vote_eval": voted,
+                   "entry_points": cli,
                    "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -56,7 +56,8 @@ class DataPipeline:
     Args:
       dataset: supports __len__ and __getitem__(int) -> dict of arrays, a
         classification sample (points, label), a sem-seg sample
-        (points, seg) or a part-seg sample (points, cat, seg).
+        (points, seg) or a part-seg sample (points, cat, seg); if it has
+        ``set_epoch(epoch)``, each epoch calls it before drawing a batch.
       batch_size: static batch size; incomplete tails are dropped so every
         step sees the same shapes.
       shuffle: reshuffle indices every epoch from ``seed``.
@@ -105,6 +106,9 @@ class DataPipeline:
         passes); the worker sees the same bound, so a consumer that stops
         there leaves no worker blocked on a full queue."""
         n = len(self.dataset)
+        if hasattr(self.dataset, "set_epoch"):
+            # the real-data loaders draw new crops and subsamples each epoch
+            self.dataset.set_epoch(epoch)
         idx = self._epoch_indices(epoch)
         nsteps = len(idx) // self.batch_size
         if max_steps is not None:

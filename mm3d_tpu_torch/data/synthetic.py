@@ -9,8 +9,8 @@ pairing with a rendered view and camera calibration
 composition drawn from a seeded RNG, so the task is learnable. Host-side
 numpy, deterministic in (seed, index), and array-for-array identical with
 the JAX package's generators for the same seed (``tests/test_torch_data.py``,
-``tests/test_torch_partseg.py``). The whole-room scene of the scene-eval
-protocol comes with its slice.
+``tests/test_torch_partseg.py``), and the whole room of the scene-eval
+protocol (``synthetic_room``, ``tests/test_torch_scene_eval.py``).
 """
 
 from __future__ import annotations
@@ -413,6 +413,17 @@ def _gen_room(rng, n, num_classes, seed):
     xyz, seg, rgb = xyz[perm], seg[perm], rgb[perm]
     room_max = np.array([room[0], room[1], H], np.float32)
     return xyz, rgb, seg, room_max
+
+
+def synthetic_room(n: int = 20000, seed: int = 0, num_classes: int = 13):
+    """A whole synthetic room for the whole-room protocol (``test --scene
+    synthetic``): (xyz [n,3] in room coordinates, rgb [n,3] in [0,1],
+    labels [n] int32). Its stream's seed multiplier differs from
+    ``SyntheticIndoorScene``'s, and seed + 1 keeps seed 0 off it too, so
+    the room is no training block."""
+    rng = np.random.RandomState(((seed + 1) * 4_000_037 + 7919) % (2**32))
+    xyz, rgb, seg, _ = _gen_room(rng, n, num_classes, seed)
+    return xyz, rgb, seg
 
 
 # --------------------------------------------------------------- multimodal

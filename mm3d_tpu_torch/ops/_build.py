@@ -8,6 +8,14 @@ and an unchanged one is reused. The build runs at first use; ``build()``
 starts one ``nvcc`` per source, all at once. A failed build raises with
 nvcc's output.
 
+The host libraries of the data path (the text parser and the point
+renderer) are built the same way from the repository's ``native/*.cpp`` by
+``g++`` (``load_native``): ``build/libmm3d_io-<digest>.so`` and
+``build/libmm3d_render-<digest>.so``, the digest over
+the source and the flags. A build writes a temporary file of its own and
+renames it over the final name, so test workers or processes that build the
+same library at once each load a whole file.
+
 Nothing here runs at import time: the CPU tests import every module of the
 package on a host with no ``nvcc``.
 """
@@ -31,6 +39,10 @@ SOURCES = ("fps", "ball_query", "fused_sa", "gather_bwd", "fused_fp",
            "bilinear", "three_nn", "three_interp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# the host libraries' sources, beside the package; the flags of
+# native/Makefile
+NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "native")
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -136,4 +148,46 @@ def load(name: str) -> ctypes.CDLL:
             lib.mm3d_error_string.argtypes = [ctypes.c_int]
             lib.mm3d_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
+        return lib
+
+
+def native_lib_path(name: str, source: str) -> str:
+    """Where library ``name`` of ``native/<source>`` is built."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(os.path.join(NATIVE_DIR, source), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def load_native(name: str, source: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` of ``native/<source>``, built by
+    ``g++`` first if needed. Raises (FileNotFoundError without the source or
+    the compiler, RuntimeError with the compiler's output) when it cannot be
+    built."""
+    with _LOCK:
+        key = f"native:{name}"
+        lib = _LIBS.get(key)
+        if lib is None:
+            path = native_lib_path(name, source)
+            if not os.path.exists(path):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                # a name of this process and thread: two processes that
+                # build at once each rename a whole file over the same path
+                tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+                cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+                try:
+                    out = subprocess.run(
+                        [cxx, *GXX_FLAGS, "-o", tmp,
+                         os.path.join(NATIVE_DIR, source)],
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True, timeout=300)
+                    if out.returncode != 0:
+                        raise RuntimeError(f"{cxx} failed for native/"
+                                           f"{source}:\n{out.stdout}")
+                    os.replace(tmp, path)
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+            lib = ctypes.CDLL(path)
+            _LIBS[key] = lib
         return lib
