@@ -195,7 +195,30 @@ that goes wrong:
    CLI path): coverage equal, agreement >= 0.95. 6d: pointnet2_cls_knn on
    the 6a tree's points, one epoch and a bf16 ``test`` (the given-index
    fused SA on a CLI path);
-7. prints the ``{"kernels": [...]}`` line, then, last, the
+7. data parallelism and point sharding (``mm3d_tpu_torch.parallel``), its
+   ranks processes that share the card over ``gloo`` (NCCL takes one rank a
+   card), the backend printed first. 7a, 4 ranks: sharded FPS, ball query
+   and kNN on 2 clouds of 2,048 points (512 centroids, K=16) and 1 cloud of
+   131,072 (1,024, K=32) equal to the single-process ops (the kernels where
+   they take the shape: FPS takes 16,384 points, so the big cloud's is the
+   plain op; kNN is plain), both sharded SA tails and ``sharded_fp``
+   within 1e-5; 7b, 4 ranks, ``min_points`` 2048: point-sharded
+   pointnet2_sem_seg and pointnet2_sem_seg_msg at B=16 x 4,096 and
+   pointnet2_sem_seg on one cloud of 131,072 points (fp32 alone), fp32
+   and bf16: fp32 log-probs within 1e-5 of the single-process forward,
+   bf16 vs fp32 per point >= 0.95, peak MB a rank; 7c, 2 ranks:
+   data-parallel train steps (fusion_cls B=24 bf16 and fp32,
+   pointnet2_sem_seg B=24 x 4,096 fp32) against the single-process step
+   of the same dtype on the same batch, state and augmentation draws,
+   dropout off, in deterministic mode, within DP_FLOOR_FACTOR of a floor
+   (two single steps, one on reordered rows); the same step without the
+   gradient all-reduce, and with per-rank BN, must fail that gate (the
+   controls), then one
+   ``Trainer.fit`` epoch through the train CLI in a one-rank NCCL group;
+   7d: ``test --point_shard 2048`` on that run gives its metrics without
+   the flag. ms a sharded call, forward or step beside the single-process
+   one, collectives a call;
+8. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package. The details also go to
@@ -3510,6 +3533,532 @@ def entry_points(torch, cuda_kernels, dev, work):
     return out
 
 
+# ------------------------------------------------------------ phase 7
+# Data parallelism and point sharding over torch.distributed. The ranks of
+# 7a-7c are processes that share the one card (mm3d_tpu_torch.parallel
+# .launch.run_ranks, a file:// rendezvous), over gloo: NCCL takes one rank
+# a card. gloo takes all_reduce and broadcast of CUDA tensors, the two
+# collectives parallel.mesh builds every other one from. 7c's Trainer.fit
+# and 7d run in this process, in a one-rank NCCL group.
+PAR_WORLD, DP_WORLD, PAR_BACKEND = 4, 2, "gloo"
+BIG_N = 131_072  # the N > 1e5 single cloud (mm3d_tpu/parallel/mesh.py:16)
+# 7a: (clouds, points, centroids, radius, K)
+SHARD_CLOUDS = ((2, 2048, 512, 0.3, 16), (1, BIG_N, 1024, 0.05, 32))
+# 7b: (model, clouds, points, dtypes), sharded from SHARD_MIN_POINTS
+# points up; the BIG_N cloud in fp32 alone (a sharded forward takes ~10 s
+# there, its 1,024 FPS steps' collectives)
+SHARD_MIN_POINTS = 2048
+SHARD_MODELS = (("pointnet2_sem_seg", SCENE_BATCH, SCENE_NPOINT,
+                 ("float32", "bfloat16")),
+                ("pointnet2_sem_seg_msg", SCENE_BATCH, SCENE_NPOINT,
+                 ("float32", "bfloat16")),
+                ("pointnet2_sem_seg", 1, BIG_N, ("float32",)))
+# timed calls a median, after one warm-up; a sharded FPS (one collective
+# a step, 1.2 / 6.4 ms each at 2 / 4 ranks on the card: gloo copies CUDA
+# tensors through the host, and the ranks' contexts take turns on the
+# card) and a forward that runs one are timed once, on the call checked
+PAR_REPS = 3
+RANK_TIMEOUT = 600.0
+
+
+def _once(torch, fn):
+    """(fn(), its ms by CUDA events)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _rank_device(torch):
+    """Every rank on the one card, strict fp32."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _sharded_ops_rank(torch, mesh, dev, record):
+    """7a on one rank: each sharded op at SHARD_CLOUDS, ms a call (every
+    rank times it, collectives and all); rank 0 also holds it against the
+    single-process op and times that."""
+    from mm3d_tpu_torch import ops
+    from mm3d_tpu_torch.ops import cuda_kernels
+    from mm3d_tpu_torch.parallel import mesh as pmesh
+    from mm3d_tpu_torch.parallel import sharded_group as sg
+    from mm3d_tpu_torch.parallel.sharded_fps import sharded_fps
+    fps_max = cuda_kernels._fn("mm3d_fps_max_points")()
+    for B, N, S, r, K in SHARD_CLOUDS:
+        rng = np.random.RandomState(N)
+        xyz = torch.from_numpy(unit_sphere_clouds(rng, B, N)).to(dev)
+
+        def t(*shape, scale=1.0):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    * scale).to(dev)
+
+        pre, cb, fp_pre, skip = t(B, N, 32), t(B, S, 32), t(B, S, 32), \
+            t(B, N, 32)
+        w = (t(32, 32, scale=0.2), t(32), t(32, 64, scale=0.2), t(64))
+        idx = sharded_fps(xyz, S, mesh)
+        cents = ops.index_points(xyz, idx)
+        kn = sg.sharded_knn_point(K, xyz, cents, mesh)
+        calls = {
+            "fps": lambda: sharded_fps(xyz, S, mesh),
+            "ball_query": lambda: sg.sharded_ball_query(r, K, xyz, cents,
+                                                        mesh),
+            "knn": lambda: sg.sharded_knn_point(K, xyz, cents, mesh),
+            "sa_tail": lambda: sg.sharded_sa_group_max(
+                r, K, xyz, cents, pre, cb, *w, mesh),
+            "idx_tail": lambda: sg.sharded_idx_group_max(kn, pre, cb, *w,
+                                                         mesh),
+            "fp": lambda: sg.sharded_fp(xyz, cents, fp_pre, skip, mesh)}
+        got, row = {}, {"B": B, "N": N, "S": S, "K": K, "radius": r}
+        for k, fn in calls.items():
+            pmesh.reset_collectives()
+            got[k], row[f"{k}_ms"] = _once(torch, fn)
+            row[f"{k}_collectives"] = pmesh.collectives()
+            if k != "fps":
+                row[f"{k}_ms"] = cuda_ms(torch, fn, PAR_REPS, warmup=1)
+        if mesh.rank == 0:
+            # the single-process ops: the kernels where they take the shape
+            fps_ref = (ops.farthest_point_sample if N <= fps_max
+                       else ops.fps_torch)
+            bq = ops.query_ball_point(r, K, xyz, cents)
+            refs = {
+                "fps": (lambda: fps_ref(xyz, S), "kernel" if N <= fps_max
+                        else "plain: the FPS kernel takes "
+                             f"{fps_max} points"),
+                "ball_query": (lambda: ops.query_ball_point(r, K, xyz,
+                                                           cents), "kernel"),
+                "knn": (lambda: ops.knn_point(K, xyz, cents),
+                        "plain (knn_point has no kernel)"),
+                "sa_tail": (lambda: ops.fused_sa_idx_torch(
+                    K, bq, pre, cb, *w), "plain twin over the ball query"),
+                "idx_tail": (lambda: ops.fused_sa_idx_torch(
+                    K, kn, pre, cb, *w), "plain twin"),
+                "fp": (lambda: ops.fused_fp(xyz, cents, fp_pre, skip),
+                       "kernel")}
+            for k, (fn, how) in refs.items():
+                want = fn()
+                row[f"{k}_ref"] = how
+                row[f"{k}_single_ms"] = cuda_ms(torch, fn, PAR_REPS,
+                                                warmup=1)
+                if k in ("fps", "ball_query", "knn"):
+                    check(torch.equal(got[k], want),
+                          f"7a sharded {k} N={N}: not equal to the "
+                          f"single-process op")
+                    row[f"{k}_exact"] = True
+                else:
+                    err = float((got[k] - want).abs().max())
+                    row[f"{k}_max_abs_err"] = err
+                    check(err <= F32_ATOL * max(float(want.abs().max()),
+                                                1.0),
+                          f"7a sharded {k} N={N}: max|d| {err}")
+        record.append(row)
+
+
+def _sharded_models_rank(torch, mesh, dev, record):
+    """7b on one rank: the point-sharded eval forwards at full width, fp32
+    (and bf16 where SHARD_MODELS names it); rank 0 holds them against the
+    single-process forward."""
+    from mm3d_tpu_torch import ops
+    from mm3d_tpu_torch.data.synthetic import scene_request
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.ops import cuda_kernels
+    from mm3d_tpu_torch.parallel import mesh as pmesh
+    from mm3d_tpu_torch.parallel import point_shard
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+    for name, B, N, dtypes in SHARD_MODELS:
+        model = init_params(get_model(name).builder(num_class=SEG_CLASSES),
+                            seed=0)
+        nontrivial_bn(model, seed=1)
+        state = model.state_dict()
+        preds = {dt: make_predictor(name, state, dtype=getattr(torch, dt),
+                                    device=dev, num_class=SEG_CLASSES)
+                 for dt in dtypes}
+        pts = torch.from_numpy(scene_request(B, N, seed=70)[0]).to(dev)
+        row = {"model": name, "B": B, "N": N}
+        out = {}
+        for dt, pred in preds.items():
+            def sharded(pred=pred):
+                with point_shard(mesh, min_points=SHARD_MIN_POINTS):
+                    return pred(pts)
+            cuda_kernels.reset_launches()
+            pmesh.reset_collectives()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out[dt], row[f"{dt}_ms"] = _once(torch, sharded)
+            row[f"{dt}_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+            row[f"{dt}_launches"] = launch_counts(cuda_kernels)
+            row[f"{dt}_collectives"] = pmesh.collectives()
+        if mesh.rank == 0:
+            # the FPS kernel takes at most 16,384 points: the single-process
+            # forward of the big cloud runs the plain ops
+            plain = N > cuda_kernels._fn("mm3d_fps_max_points")()
+            ref = {}
+            with ops.use_impl("torch" if plain else "auto"):
+                for dt, pred in preds.items():
+                    pred(pts)  # warm-up
+                    ref[dt], row[f"single_{dt}_ms"] = _once(
+                        torch, lambda pred=pred: pred(pts))
+            row["single_path"] = "plain" if plain else "kernels"
+
+            def agree(a, b):
+                return float((a.float().argmax(-1) == b.float().argmax(-1))
+                             .float().mean())
+
+            err = float((out["float32"] - ref["float32"]).abs().max())
+            row["fp32_max_abs_err"] = err
+            check(bool(torch.isfinite(out["float32"]).all()),
+                  f"7b {name} N={N}: non-finite log-probs")
+            check(err <= F32_ATOL, f"7b {name} N={N}: fp32 sharded vs "
+                                   f"single max|d| {err}")
+            if "bfloat16" in out:
+                row.update(bf16_argmax_agreement=agree(out["bfloat16"],
+                                                       ref["float32"]),
+                           single_bf16_argmax_agreement=agree(
+                               ref["bfloat16"], ref["float32"]))
+                check(row["bf16_argmax_agreement"] >= 0.95,
+                      f"7b {name} N={N}: bf16 vs fp32 per point "
+                      f"{row['bf16_argmax_agreement']}")
+        record.append(row)
+
+
+def par_rank(mesh):
+    """A rank of 7a and 7b (run by run_ranks in each spawned process)."""
+    import torch
+    dev = _rank_device(torch)
+    ops_rows, model_rows = [], []
+    _sharded_ops_rank(torch, mesh, dev, ops_rows)
+    _sharded_models_rank(torch, mesh, dev, model_rows)
+    return {"ops": ops_rows, "models": model_rows}
+
+
+DP_STEPS = (("fusion_cls", "bfloat16"), ("fusion_cls", "float32"),
+            ("pointnet2_sem_seg", "float32"))
+
+
+# 7c: a data-parallel step against the single-process step of its dtype.
+# Its train-mode BN adds each rank's sums, then the ranks', and at half the
+# batch cuDNN picks other convolution algorithms (measured on the card:
+# fusion_cls's image CNN in eval at B=24 and at 2 x 12 differs by 0.0078 in
+# bf16, 3.6e-7 in fp32): the same function, not the same bits. So each
+# gradient, the loss and each BN running statistic are held against a floor
+# measured in the same run, in the same dtype, with dropout off on every
+# side: two single-process steps of the same function, the (augmented)
+# batch's rows in another order (ReLUs and max-over-neighbours winners near
+# ties flip). The data-parallel step must lie within DP_FLOOR_FACTOR times
+# that floor, and at least one rounding of its dtype (fp32: phase 4's 1e-5;
+# bf16: BF16_RESIDUE, half an ulp, since a reordering leaves the bf16
+# forward nearly as it was while other convolution algorithms round it
+# anew): a gradient's relative L2 over its floor (at least the median over
+# the tensors), the loss's relative difference, a statistic's max|d|
+# relative to its largest element (at least 1). Two controls must not pass:
+# the same step without the gradient all-reduce (each rank keeps its rows'
+# share), and with per-rank BN statistics (PyTorch's BN). Gradients below
+# RESIDUE (bf16: BF16_RESIDUE) of the largest are rounding residue held to
+# that scale. PERF.md gives the readings the factor was set between.
+DP_FLOOR_FACTOR = 10.0
+
+
+def dp_floor(torch, ma, mb, la, lb):
+    """Two stepped single-process models (losses la, lb) apart: each
+    gradient's relative L2 (to ``mb``'s), each BN statistic's max|d| and
+    the loss's relative difference."""
+    ga, gb = _grads(ma), _grads(mb)
+    grads = {n: float((ga[n].float() - gb[n].float()).norm())
+             / (float(gb[n].float().norm()) + 1e-30) for n in ga}
+    sa, sb = _stats(ma), _stats(mb)
+    la, lb = float(la), float(lb)
+    return (grads, {n: float((sa[n] - sb[n]).abs().max()) for n in sa},
+            abs(la - lb) / abs(lb))
+
+
+def dp_parity(torch, dtype, dmodel, rmodel, md, ms, floor):
+    """The data-parallel step (dmodel; loss md) against the single step
+    (rmodel; ms): each gradient, the loss and each BN statistic as a ratio
+    to its floor (``dp_floor``, at least the dtype's rounding over the
+    factor), within DP_FLOOR_FACTOR. Returns (the faults, the reading)."""
+    floor, stat_floor, loss_floor = floor
+    floor_med = float(np.median(list(floor.values())))
+    rounding = (1e-5 if dtype is None else BF16_RESIDUE) / DP_FLOOR_FACTOR
+    residue_share = RESIDUE if dtype is None else BF16_RESIDUE
+    faults = []
+    ld, ls = float(md["loss"]), float(ms["loss"])
+    loss_rel = abs(ld - ls) / abs(ls)
+    loss_ratio = loss_rel / max(loss_floor, rounding)
+    if loss_ratio > DP_FLOOR_FACTOR:
+        faults.append(f"loss {ld} vs single {ls}")
+    gd, gs = _grads(dmodel), _grads(rmodel)
+    top = max(float(g.float().abs().max()) for g in gs.values())
+    ratio, residue = {}, []
+    for n in gd:
+        diff = gd[n].float() - gs[n].float()
+        if max(float(gd[n].float().abs().max()),
+               float(gs[n].float().abs().max())) <= residue_share * top:
+            # rounding residue of a zero gradient, held to that scale
+            residue.append(n)
+            if float(diff.abs().max()) > residue_share * top:
+                faults.append(f"residue grad {n}")
+            continue
+        l2 = float(diff.norm()) / (float(gs[n].float().norm()) + 1e-30)
+        ratio[n] = l2 / max(floor[n], floor_med, rounding)
+        if ratio[n] > DP_FLOOR_FACTOR:
+            faults.append(f"grad {n} ||d||/||g|| {l2}: {ratio[n]} x its "
+                          f"floor")
+    sd, ss = _stats(dmodel), _stats(rmodel)
+    stat_ratio = {n: float((sd[n] - ss[n]).abs().max())
+                  / max(stat_floor[n], rounding
+                        * max(float(ss[n].abs().max()), 1.0))
+                  for n in sd}
+    worst_stat = max(stat_ratio, key=stat_ratio.get)
+    if stat_ratio[worst_stat] > DP_FLOOR_FACTOR:
+        faults.append(f"BN statistic {worst_stat} differs "
+                      f"({stat_ratio[worst_stat]} x its floor)")
+    worst = max(ratio, key=ratio.get)
+    return faults, {
+        "loss": ld, "loss_single": ls, "loss_rel": loss_rel,
+        "loss_floor": loss_floor, "loss_ratio": loss_ratio,
+        "floor_median": floor_med,
+        "ratio_median": float(np.median(list(ratio.values()))),
+        "ratio_max": [ratio[worst], worst],
+        "over_bound": sum(r > DP_FLOOR_FACTOR for r in ratio.values()),
+        "compared": len(ratio), "residue_grads": residue,
+        "largest_grad": top,
+        "stat_ratio_max": [stat_ratio[worst_stat], worst_stat]}
+
+
+def dp_rank(mesh):
+    """A rank of 7c: the data-parallel train steps at a global batch of
+    TRAIN_BATCH against the single-process step on rank 0 (same state,
+    batch and draws), in deterministic mode, and the two controls; ms a
+    step on each side."""
+    from unittest import mock
+
+    import torch
+    from mm3d_tpu_torch.data import augment as aug
+    from mm3d_tpu_torch.data.synthetic import scene_request
+    from mm3d_tpu_torch.models import get_model, init_params, layers
+    from mm3d_tpu_torch.ops import cuda_kernels
+    from mm3d_tpu_torch.parallel import mesh as pmesh
+    from mm3d_tpu_torch.training import steps
+    from mm3d_tpu_torch.training.state import make_optimizer
+    dev = _rank_device(torch)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the controls: no gradient all-reduce; per-rank BN statistics
+    controls = {"no_grad_sync": (steps.dpar, "sync_gradients",
+                                 lambda params, mesh: None),
+                "rank_bn": (layers, "_dp_ctx", lambda: None)}
+    rows = []
+    for name, dtname in DP_STEPS:
+        spec = get_model(name)
+        dtype = None if dtname == "float32" else torch.bfloat16
+        if spec.task == "semseg":
+            pts, seg = scene_request(TRAIN_BATCH, SCENE_NPOINT, seed=80)
+            batch = {"points": torch.from_numpy(pts).to(dev),
+                     "seg": torch.from_numpy(seg).to(dev)}
+            kw = {"num_class": SEG_CLASSES}
+        else:
+            p, img, K, R, t = request(81, TRAIN_BATCH)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in zip(
+                ("points", "image", "K", "R", "t"), (p, img, K, R, t))}
+            batch["label"] = torch.from_numpy(np.random.RandomState(82)
+                                              .randint(0, NUM_CLASS,
+                                                       TRAIN_BATCH)
+                                              .astype(np.int32)).to(dev)
+            kw = {"num_class": NUM_CLASS}
+        augs = aug.TASK_PIPELINES.get(spec.task, ())
+
+        def fresh():
+            return init_params(spec.builder(dtype=dtype, **kw),
+                               seed=0).to(dev)
+
+        def stepper(m, use_mesh, names=augs):
+            # dropout off on every side, so that the floor's steps keep each
+            # row's function (the draws are held exact by the f64 CPU
+            # tests); the augmentation's draws are the run's
+            return steps.make_train_step(
+                m, spec.loss, make_optimizer(m.parameters(), "adam", 1e-4),
+                spec.task, augment_names=names,
+                generator=torch.Generator(dev).manual_seed(9),
+                deterministic=True, mesh=use_mesh)
+
+        model = fresh()
+        step = stepper(model, mesh)
+        cuda_kernels.reset_launches()
+        pmesh.reset_collectives()
+        m = step(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        row = {"model": name, "dtype": dtname, "B": TRAIN_BATCH,
+               "launches": launch_counts(cuda_kernels),
+               "collectives": pmesh.collectives()}
+        ran = {}
+        for k, (where, attr, fake) in controls.items():  # on every rank
+            ran[k] = fresh()
+            with mock.patch.object(where, attr, fake):
+                ran[k] = (ran[k], stepper(ran[k], mesh)(batch, 1e-3, 0.1))
+        if mesh.rank == 0:
+            label = f"7c data-parallel {name} {dtname}"
+            ref = fresh()
+            rstep = stepper(ref, None)
+            mr = rstep(batch, 1e-3, 0.1)
+            # the floor: the augmented batch's rows reordered
+            pts, R = steps._augmented(batch, spec.task, augs,
+                                      torch.Generator(dev).manual_seed(9))
+            seen = dict(batch, points=pts,
+                        **({} if R is None else {"R": R}))
+            perm = torch.randperm(
+                TRAIN_BATCH, generator=torch.Generator().manual_seed(3)
+            ).to(dev)
+            ma, mb = fresh(), fresh()
+            la = stepper(ma, None, ())(seen, 1e-3, 0.1)["loss"]
+            lb = stepper(mb, None, ())({k: v[perm] for k, v in seen.items()},
+                                       1e-3, 0.1)["loss"]
+            floor = dp_floor(torch, ma, mb, la, lb)
+            faults, row["parity"] = dp_parity(torch, dtype, model, ref, m,
+                                              mr, floor)
+            check(not faults, f"{label}: {faults}")
+            for k, (cm, mc) in ran.items():
+                faults, row[k] = dp_parity(torch, dtype, cm, ref, mc, mr,
+                                           floor)
+                check(faults, f"{label}: the control {k} passed the gate: "
+                              f"{row[k]}")
+            for k in ("parity", *controls):
+                r = row[k]
+                print(f"{label} {k}: loss {r['loss']} vs single "
+                      f"{r['loss_single']}, {r['loss_ratio']:.3g} x its floor "
+                      f"({r['loss_floor']:.3g} relative); ||d||/||g|| over "
+                      f"the floor (median {r['floor_median']:.3g}): median "
+                      f"{r['ratio_median']:.3g}, largest "
+                      f"{r['ratio_max'][0]:.3g} at {r['ratio_max'][1]}; "
+                      f"{r['over_bound']} of {r['compared']} over "
+                      f"{DP_FLOOR_FACTOR}; BN statistics up to "
+                      f"{r['stat_ratio_max'][0]:.3g} x their floor at "
+                      f"{r['stat_ratio_max'][1]}; "
+                      f"{len(r['residue_grads'])} residue tensors",
+                      flush=True)
+            row["single_ms"] = cuda_ms(torch, lambda: rstep(batch, 1e-3,
+                                                            0.1),
+                                       PAR_REPS, warmup=1)
+        row["ms"] = cuda_ms(torch, lambda: step(batch, 1e-3, 0.1),
+                            PAR_REPS, warmup=1)
+        rows.append(row)
+    torch.use_deterministic_algorithms(False)
+    return rows
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(torch, cuda_kernels, dev, work):
+    """Phase 7 (see the module's docstring); returns its record."""
+    import torch.distributed as dist
+    from mm3d_tpu_torch import test as test_cli
+    from mm3d_tpu_torch import train as train_cli
+    from mm3d_tpu_torch.parallel.launch import run_ranks
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    print(f"phase 7: backend {PAR_BACKEND} for ranks sharing the card "
+          f"(7a, 7b: {PAR_WORLD} ranks; 7c: {DP_WORLD}); nccl for one rank",
+          flush=True)
+    par = run_ranks(par_rank, PAR_WORLD, backend=PAR_BACKEND,
+                    timeout=RANK_TIMEOUT)
+    out = {"ops": par[0]["ops"], "models": par[0]["models"],
+           "peak_mb_per_rank": [[r["float32_peak_mb"] for r in p["models"]]
+                                for p in par]}
+    out["s_7ab"] = time.perf_counter() - t_phase
+    for row in out["ops"]:
+        print(f"7a N={row['N']} S={row['S']} K={row['K']}: "
+              + ", ".join(f"{k} {row[k + '_ms']:.3f} ms "
+                          f"({row[k + '_collectives']} coll.; single "
+                          f"{row[k + '_single_ms']:.3f}, {row[k + '_ref']})"
+                          for k in ("fps", "ball_query", "knn", "sa_tail",
+                                    "idx_tail", "fp")), flush=True)
+    for row in out["models"]:
+        dts = [dt for dt in ("float32", "bfloat16") if f"{dt}_ms" in row]
+        print(f"7b {row['model']} B={row['B']} N={row['N']}: "
+              + "; ".join(f"{dt} {row[dt + '_ms']:.2f} ms a sharded forward "
+                          f"({row[dt + '_collectives']} collectives, peak "
+                          f"{row[dt + '_peak_mb']:.0f} MB a rank), single "
+                          f"{row['single_' + dt + '_ms']:.2f} ms"
+                          for dt in dts)
+              + f" ({row['single_path']}); fp32 max|d| "
+              f"{row['fp32_max_abs_err']:.3g}"
+              + (f", bf16 vs fp32 per point "
+                 f"{row['bf16_argmax_agreement']:.4f} (single "
+                 f"{row['single_bf16_argmax_agreement']:.4f})"
+                 if "bfloat16" in dts else ""), flush=True)
+    dp = run_ranks(dp_rank, DP_WORLD, backend=PAR_BACKEND,
+                   timeout=RANK_TIMEOUT)
+    out["dp_steps"] = dp[0]
+    out["s_7c"] = time.perf_counter() - t_phase - out["s_7ab"]
+    for row in dp[0]:
+        print(f"7c {row['model']} {row['dtype']} B={row['B']}: "
+              f"{row['ms']:.2f} ms a data-parallel step on {DP_WORLD} "
+              f"ranks ({row['collectives']} collectives), single "
+              f"{row['single_ms']:.2f} ms", flush=True)
+    # 7c's Trainer.fit at world size 1 over nccl, then 7d, in this process
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        print(f"7c/7d: one-rank group, backend {dist.get_backend()}",
+              flush=True)
+        cuda_kernels.reset_launches()
+        common = ["--model", "pointnet2_sem_seg", "--npoint",
+                  str(SCENE_NPOINT), "--batch_size", str(TRAIN_BATCH),
+                  "--test_size", str(SCENE_TEST_SIZE), "--device",
+                  dev.type]
+        t0 = time.perf_counter()
+        fit = train_cli.main(common + [
+            "--epoch", "1", "--train_size", str(SCENE_TRAIN_SIZE),
+            "--log_dir", work, "--run_name", "ps"])
+        out["nccl_fit"] = {"result": fit, "s": time.perf_counter() - t0}
+        check(all(np.isfinite(v) for v in fit.values()),
+              f"7c nccl Trainer.fit: {fit}")
+        run = ["--log_dir", os.path.join(work, "semseg", "ps")]
+        plain = test_cli.main(common + run)
+        t0 = time.perf_counter()
+        sharded = test_cli.main(common + run + [
+            "--point_shard", str(SHARD_MIN_POINTS)])
+        out["cli"] = {"plain": plain, "point_shard": sharded,
+                      "s": time.perf_counter() - t0,
+                      "equal": plain == sharded}
+        for k in ("point_acc", "miou"):
+            check(abs(sharded[k] - plain[k]) <= ROOM_MARGIN,
+                  f"7d --point_shard {k} {sharded[k]} vs {plain[k]}")
+        check(abs(sharded["eval_loss"] - plain["eval_loss"])
+              <= 1e-5 * abs(plain["eval_loss"]),
+              f"7d --point_shard eval_loss {sharded} vs {plain}")
+        out["launches"] = launch_counts(cuda_kernels)
+    finally:
+        dist.destroy_process_group()
+    print(f"7c nccl fit {out['nccl_fit']['s']:.1f} s: {fit}; 7d test "
+          f"--point_shard {SHARD_MIN_POINTS} {out['cli']['s']:.1f} s, metrics equal "
+          f"{out['cli']['equal']}: {sharded}", flush=True)
+    # the kernels the parallel paths launched: rank 0's point-sharded
+    # forwards (both dtypes) and data-parallel steps, and 7c/7d here
+    for row in out["models"]:
+        for dt in ("float32", "bfloat16"):
+            for k, n in row.get(f"{dt}_launches", {}).items():
+                out["launches"][k] += n
+    for row in dp[0]:
+        for k, n in row["launches"].items():
+            out["launches"][k] += n
+    out["s"] = time.perf_counter() - t_phase
+    print(f"phase 7: {out['s']:.1f} s (7a and 7b {out['s_7ab']:.1f}, 7c's "
+          f"ranks {out['s_7c']:.1f}); launches {out['launches']}",
+          flush=True)
+    return out
+
+
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
     named (fused SA, given-index fused SA and fused FP: bf16 serving;
@@ -3598,7 +4147,16 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print("allow_tf32: matmul False, cudnn False", flush=True)
 
+    # seconds a phase, host clock, printed at the end
+    marks = [("build", time.perf_counter())]
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
+        print(f"phase {phase} done at {marks[-1][1] - marks[0][1]:.1f} s "
+              f"after the build", flush=True)
+
     rows = kernel_checks(torch, ops, geometry, dev)
+    mark("2")
     served = serve(torch, ops, cuda_kernels, dev, "fusion_cls",
                    [[torch.from_numpy(a).to(dev) for a in request(s)]
                     for s in (10, 11, 12)])
@@ -3628,6 +4186,7 @@ def main():
                                    "pointnet2_cls_msg", clouds[:1])}
     torch.cuda.empty_cache()
     artifacts = serve_artifacts(torch, cuda_kernels, dev, card)  # 3g
+    mark("3")
     # every Trainer's run directory and checkpoints, removed at the end
     log_root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     try:
@@ -3641,16 +4200,28 @@ def main():
                            "pointnet_cls")  # 4e
         trained_scene = train_seg(torch, ops, cuda_kernels, dev,
                                   "pointnet2_sem_seg", log_root)  # 4f
+        mark("4")
         resumed = train_resume(torch, cuda_kernels, dev, log_root)  # 5a
     finally:
         shutil.rmtree(log_root, ignore_errors=True)
     voted = vote_eval(torch, ops, cuda_kernels, dev)  # 5b
+    mark("5")
     # the trees, runs, artifacts and PNG of the CLIs, removed at the end
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         cli = entry_points(torch, cuda_kernels, dev, work)  # 6
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("6")
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        parallel = parallel_phase(torch, cuda_kernels, dev, work)  # 7
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mark("7")
+    phase_s = {"build": build_s}
+    phase_s.update((k, t - marks[i][1]) for i, (k, t) in enumerate(marks[1:]))
+    print(f"seconds a phase: {phase_s}", flush=True)
     # each kernel's launches on the main paths: serving every registered
     # model but the attention-head variants (bf16 + fp32), serving the
     # exported artifacts over HTTP, one epoch of Trainer.fit of
@@ -3661,7 +4232,7 @@ def main():
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
               *served_pn.values(), *served_tops.values(), artifacts, trained,
               trained_seg, trained_knn, trained_part, trained_pn,
-              trained_scene, resumed, voted, cli)
+              trained_scene, resumed, voted, cli, parallel)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
     kernels = kernels_line(rows, main_launches)
@@ -3685,8 +4256,8 @@ def main():
                    "train_fusion_sem_seg": trained_seg,
                    "train_pointnet2_part_seg_msg": trained_part,
                    "train_resume": resumed, "vote_eval": voted,
-                   "entry_points": cli,
-                   "kernels": kernels},
+                   "entry_points": cli, "parallel": parallel,
+                   "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from mm3d_tpu_torch.parallel import mesh as pmesh
+from mm3d_tpu_torch.parallel.data_parallel import current as _dp_ctx
+from mm3d_tpu_torch.parallel.data_parallel import draw_rows
+
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -70,25 +74,43 @@ class _BNTrain(torch.autograd.Function):
     input), from the shifted single pass: anchor on the first element,
     var = max(E[xs^2]-E[xs]^2, 0).
     ``dims`` are the reduced axes, ``shape`` broadcasts a per-channel vector
-    against x. Only (x, gamma, mean, inv) are kept for the backward."""
+    against x. Only (x, gamma, mean, inv) are kept for the backward.
+
+    With a data-parallel ``mesh`` (``parallel.data_parallel``) x is this
+    rank's rows of the global batch and the statistics are the global
+    batch's, as one process computes them: the anchor is rank 0's first
+    element, the sums of xs and xs^2 are all-reduced, and so are the
+    backward's sums of d_y and d_y*xhat (a synchronised BN). d_gamma and
+    d_beta stay this rank's share, which the gradient all-reduce adds up."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, dims, shape):
+    def forward(ctx, x, gamma, beta, eps, dims, shape, mesh=None):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         anchor = tuple(slice(None) if d not in dims else 0
                        for d in range(x.dim()))
         shift = xf[anchor].reshape(shape)
-        xs = xf - shift
-        mean_s = xs.mean(dims)
-        var = torch.clamp(xs.square().mean(dims) - mean_s.square(), min=0.0)
+        count = x.numel() // shift.numel()
+        if mesh is None:
+            xs = xf - shift
+            mean_s = xs.mean(dims)
+            var = torch.clamp(xs.square().mean(dims) - mean_s.square(),
+                              min=0.0)
+        else:
+            shift = pmesh.broadcast(shift, mesh)
+            xs = xf - shift
+            count *= mesh.world_size
+            sums = pmesh.all_reduce(
+                torch.stack([xs.sum(dims), xs.square().sum(dims)]), mesh)
+            mean_s = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean_s.square(), min=0.0)
         mean = mean_s + shift.reshape(-1)
         inv = torch.rsqrt(var + eps)
         dt = x.dtype
         y = ((x - mean.to(dt).reshape(shape)) * inv.to(dt).reshape(shape)
              * gamma.reshape(shape) + beta.reshape(shape))
         ctx.save_for_backward(x, gamma, mean, inv)
-        ctx.dims, ctx.shape = dims, shape
-        ctx.count = x.numel() // mean.numel()
+        ctx.dims, ctx.shape, ctx.mesh = dims, shape, mesh
+        ctx.count = count
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -101,14 +123,20 @@ class _BNTrain(torch.autograd.Function):
         xhat = (x - mean.to(dt).reshape(shape)) * inv_s
         # reductions in f32 (see the forward)
         acc = torch.promote_types(dt, torch.float32)
-        m1 = dy.to(acc).mean(dims)
-        m2 = (dy * xhat).to(acc).mean(dims)
+        if ctx.mesh is None:
+            m1 = dy.to(acc).mean(dims)
+            m2 = (dy * xhat).to(acc).mean(dims)
+            d_gamma = (m2 * T).to(gamma.dtype)
+            d_beta = (m1 * T).to(gamma.dtype)
+        else:
+            local = torch.stack([dy.to(acc).sum(dims),
+                                 (dy * xhat).to(acc).sum(dims)])
+            m1, m2 = pmesh.all_reduce(local, ctx.mesh) / T
+            d_beta, d_gamma = local.to(gamma.dtype)
         d_x = ((gamma.reshape(shape) * inv_s)
                * (dy - m1.to(dt).reshape(shape)
                   - xhat * m2.to(dt).reshape(shape)))
-        d_gamma = (m2 * T).to(gamma.dtype)
-        d_beta = (m1 * T).to(gamma.dtype)
-        return d_x, d_gamma, d_beta, None, None, None
+        return d_x, d_gamma, d_beta, None, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -148,9 +176,13 @@ class BatchNorm(nn.Module):
                 shape = (-1,) + (1,) * (x.dim() - 2)
             else:
                 dims, shape = tuple(range(x.dim() - 1)), (-1,)
+            dp = _dp_ctx()
+            mesh = dp.mesh if dp is not None else None
             y, mean, var = _BNTrain.apply(x, scale, bias, self.eps, dims,
-                                          shape)
+                                          shape, mesh)
             n = x.numel() // mean.numel()
+            if mesh is not None:  # the global batch's count
+                n *= mesh.world_size
             with torch.no_grad():  # torch tracks the unbiased variance
                 unbiased = var * (n / max(n - 1, 1))
                 self.mean.copy_((1 - momentum) * self.mean + momentum * mean)
@@ -220,7 +252,9 @@ class SharedMLP(nn.Module):
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). The mask is drawn from the
-    ``generator`` the caller passes (on the tensor's device)."""
+    ``generator`` the caller passes (on the tensor's device); in a
+    data-parallel step it is the global batch's mask, cut to this rank's
+    rows."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -230,8 +264,9 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if deterministic:
             return x
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < 1.0 - self.rate
+        keep = draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=x.device), x.shape,
+            _dp_ctx()) < 1.0 - self.rate
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -39,12 +39,18 @@ SSG twin; ``PointNet2SemSeg`` (``:681-721``) and ``PointNet2SemSegMSG``
 (``:724-760``) segment 9-dim indoor blocks through four SA and four FP
 blocks.
 
+Point sharding (``parallel.point_shard``): under the context, an eval
+``SetAbstraction`` (``:180-230``), ``SetAbstractionMsg`` (``:319-331``,
+``:356-368``) or ``FeaturePropagation`` (``:470-478``) whose cloud passes
+the JAX gates (``_point_shard``) splits its points over the ranks:
+``sharded_fps``, then the folded SA tail of ``parallel.sharded_group`` (one
+a scale), or ``sharded_fp`` for the FP tail; a data-parallel train step
+draws the FPS start of the global batch (``_fps_start``).
+
 Train or eval is the module's ``training`` flag. The dtype casts sit where
-the JAX module puts them. Still to be ported in later slices: the
-point-shard branches (``:183-230``, ``:319-331``, ``:356-368``,
-``:470-478``), the ``MM3D_BF16_DEBUG`` knob (``:30-36``, which returns the
-dtype unchanged when unset) and ``project_first=False`` (``:142-163``,
-``:393-405``, ``:442-454``).
+the JAX module puts them. Still to be ported: the ``MM3D_BF16_DEBUG`` knob
+(``:30-36``, which returns the dtype unchanged when unset) and
+``project_first=False`` (``:142-163``, ``:393-405``, ``:442-454``).
 """
 
 from __future__ import annotations
@@ -56,6 +62,10 @@ from torch import nn
 
 from mm3d_tpu_torch import ops
 from mm3d_tpu_torch.ops import dispatch
+from mm3d_tpu_torch.parallel import data_parallel
+from mm3d_tpu_torch.parallel.point_shard import current as point_shard_ctx
+from mm3d_tpu_torch.parallel import sharded_group as sg
+from mm3d_tpu_torch.parallel.sharded_fps import sharded_fps
 from mm3d_tpu_torch.models.layers import (BatchNorm, Dense, Dropout,
                                           SharedMLP, guarded_train_dtype,
                                           lecun_normal_, log_softmax_head)
@@ -98,12 +108,42 @@ def _fps_start(train: bool, xyz: torch.Tensor,
     """Lineage-parity random-start FPS seed (``pointnet2.py:90-102``).
 
     In training, with a generator (``TrainConfig.fps_random_start``), each
-    cloud starts FPS at a random index; otherwise at index 0."""
+    cloud starts FPS at a random index; otherwise at index 0. In a
+    data-parallel step the draw is the global batch's, cut to this rank's
+    rows."""
     if train and generator is not None:
-        return torch.randint(0, xyz.shape[1], (xyz.shape[0],),
-                             generator=generator, device=xyz.device,
-                             dtype=torch.int32)
+        return data_parallel.draw_rows(lambda shape: torch.randint(
+            0, xyz.shape[1], shape, generator=generator, device=xyz.device,
+            dtype=torch.int32), (xyz.shape[0],), data_parallel.current())
     return 0
+
+
+def _point_shard(train: bool, n_points: int, mlps,
+                 knn_nsample: Optional[int] = None):
+    """The point-shard context a block runs under, or None: the JAX gates
+    (``pointnet2.py:183-193,324-328,474-476``). A block shards in eval, with
+    3-layer MLPs (``mlps``: each SA scale's widths; none for an FP block),
+    at least ``min_points`` points and a point count that divides by the
+    mesh axis; a kNN block (``knn_nsample`` its K) also needs every tile to
+    hold K points."""
+    ps = point_shard_ctx()
+    if ps is None or train:
+        return None
+    n = ps.mesh.world_size
+    if (all(len(m) == 3 for m in mlps) and n_points >= ps.min_points
+            and n_points % n == 0
+            and (knn_nsample is None or n_points // n >= knn_nsample)):
+        return ps
+    return None
+
+
+def _fps(xyz: torch.Tensor, npoint: int, train: bool, generator, ps):
+    """The block's centroids: ``sharded_fps`` under a point-shard context
+    (eval only, so from index 0), else the FPS kernel."""
+    if ps is not None:
+        return sharded_fps(xyz, npoint, ps.mesh)
+    return ops.farthest_point_sample(xyz, npoint,
+                                     _fps_start(train, xyz, generator))
 
 
 def _concat_points(xyz: torch.Tensor, feats: Optional[torch.Tensor]
@@ -120,7 +160,8 @@ def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
                 kernel: torch.Tensor, bias: torch.Tensor, bn: BatchNorm,
                 rest: Optional[SharedMLP], radius: Optional[float],
                 nsample: int, mlp: Sequence[int], dtype, dt, train: bool,
-                bn_momentum: float, knn: bool = False) -> torch.Tensor:
+                bn_momentum: float, knn: bool = False,
+                ps=None) -> torch.Tensor:
     """One grouping scale of a project-first SA block -> [B,S,C_last]:
     the tail ``SetAbstraction`` runs once and ``SetAbstractionMsg`` once a
     scale (``pointnet2.py:232-300,338-392``).
@@ -136,17 +177,27 @@ def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
     kernel), BN, relu, the rest of the MLP and the max; bf16 training
     recentres in f32 from the f32 originals (``gathered - cterm`` cancels
     two O(1) terms, and in bf16 that leaves ~5 bits of the local
-    geometry)."""
+    geometry). Under a point-shard context ``ps`` (``_point_shard``) the
+    same folded tail runs over the ranks' tiles of the points
+    (``sharded_group``, ``pointnet2.py:202-230``)."""
     cat32, kernel32, bias32 = cat, kernel, bias
     if dt is not None:
         cat, kernel, bias = cat.to(dt), kernel.to(dt), bias.to(dt)
-    if (_want_fused_sa_idx(train, mlp, dtype, knn, nsample) if knn
-            else _want_fused_sa(train, mlp, dtype)):
+    if ps is not None or (_want_fused_sa_idx(train, mlp, dtype, knn, nsample)
+                          if knn else _want_fused_sa(train, mlp, dtype)):
         pre = torch.matmul(cat, kernel)  # [B,N,C1]
         cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
         A, C = bn.fold()
         (w1, b1), (w2, b2) = rest.fold()
         pre, cbias = pre * A, (bias - cterm) * A + C
+        if ps is not None and knn:
+            idx = sg.sharded_knn_point(nsample, xyz, new_xyz, ps.mesh)
+            return sg.sharded_idx_group_max(idx, pre, cbias, w1, b1, w2, b2,
+                                            ps.mesh)
+        if ps is not None:
+            return sg.sharded_sa_group_max(radius, nsample, xyz, new_xyz,
+                                           pre, cbias, w1, b1, w2, b2,
+                                           ps.mesh)
         if knn:
             idx = ops.knn_point(nsample, xyz, new_xyz)
             return ops.fused_sa_idx(nsample, idx, pre, cbias, w1, b1, w2, b2)
@@ -231,14 +282,15 @@ class SetAbstraction(nn.Module):
             return new_xyz, self.mlp(grouped, bn_momentum, f32=f32).amax(dim=2)
 
         dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
-        fps_idx = ops.farthest_point_sample(
-            xyz, self.npoint, _fps_start(train, xyz, fps_generator))
+        ps = _point_shard(train, xyz.shape[1], (self.mlp_widths,),
+                          self.nsample if self.knn else None)
+        fps_idx = _fps(xyz, self.npoint, train, fps_generator, ps)
         new_xyz = ops.index_points(xyz, fps_idx)
         out = _scale_tail(
             xyz, new_xyz, _concat_points(xyz, feats), self.proj_kernel,
             self.proj_bias, self.proj_bn, self.mlp_rest, self.radius,
             self.nsample, self.mlp_widths, self.dtype, dt, train,
-            bn_momentum, self.knn)
+            bn_momentum, self.knn, ps)
         return new_xyz, out
 
 
@@ -293,15 +345,15 @@ class SetAbstractionMsg(nn.Module):
         [B,S,sum of the scales' last widths])."""
         train = self.training
         dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
-        fps_idx = ops.farthest_point_sample(
-            xyz, self.npoint, _fps_start(train, xyz, fps_generator))
+        ps = _point_shard(train, xyz.shape[1], self.mlp_list)
+        fps_idx = _fps(xyz, self.npoint, train, fps_generator, ps)
         new_xyz = ops.index_points(xyz, fps_idx)
         cat = _concat_points(xyz, feats)
         outs = [_scale_tail(
             xyz, new_xyz, cat, getattr(self, f"proj_kernel_{i}"),
             getattr(self, f"proj_bias_{i}"), getattr(self, f"proj_bn_{i}"),
             getattr(self, f"mlp_rest_{i}"), radius, nsample, mlp, self.dtype,
-            dt, train, bn_momentum)
+            dt, train, bn_momentum, ps=ps)
             for i, (radius, nsample, mlp) in enumerate(zip(
                 self.radius_list, self.nsample_list, self.mlp_list))]
         return new_xyz, torch.cat(outs, dim=-1)
@@ -352,14 +404,19 @@ class FeaturePropagation(nn.Module):
         # rows of W0: [skip channels; interpolated channels]
         k_skip, k_interp = k2[:-c2], k2[-c2:]
         pre = torch.matmul(feats2, k_interp)  # [B,M,C1], on the sparse set
-        if _want_fused_fp(self.training) and M > 1:
+        ps = _point_shard(self.training, N, ()) if M > 1 else None
+        if ps is not None or (_want_fused_fp(self.training) and M > 1):
             # eval: BN's per-channel scale commutes with the interpolation,
             # so the kernel sees pre*A and the folded dense-side term
             A, C = self.proj_bn.fold()
             skip_t = bias.to(pre.dtype).expand(B, N, c1)
             if feats1 is not None:
                 skip_t = torch.matmul(feats1.to(pre.dtype), k_skip) + skip_t
-            h = ops.fused_fp(xyz1, xyz2, pre * A, skip_t * A + C)
+            if ps is not None:  # the dense rows split over the ranks
+                h = sg.sharded_fp(xyz1, xyz2, pre * A, skip_t * A + C,
+                                  ps.mesh)
+            else:
+                h = ops.fused_fp(xyz1, xyz2, pre * A, skip_t * A + C)
         else:
             if M == 1:
                 h = pre.expand(B, N, c1)

@@ -18,14 +18,21 @@ mm3d_tpu_torch.serving``). The flags are the JAX CLI's, but for ``--impl``
 (``auto|torch|cuda``) and ``--device cuda|cpu`` (the card unless ``--device
 cpu``; without CUDA it exits with a message). ``--export_platforms`` has no
 counterpart (an artifact serves on the device type it was exported on) and
-``--point_shard`` is not ported. The vote draws come from one
-``torch.Generator`` seeded by ``--seed`` on the trainer's device, one draw a
-batch. TF32 is turned off. ``main(argv)`` returns the result dict.
+``--point_shard MIN_N`` evaluates with the point axis of every eval
+block of at least MIN_N points split over the ranks
+(``parallel.point_shard``), through the vote passes and ``--scene`` too.
+It runs in one process, or under ``torchrun --nproc_per_node K`` (rank and
+world size from the environment, ``--backend`` as in the train CLI), where
+the ranks share the work and only rank 0 prints and writes. The vote draws
+come from one ``torch.Generator`` seeded by ``--seed`` on the trainer's
+device, one draw a batch. TF32 is turned off. ``main(argv)`` returns the
+result dict.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import os
 import sys
@@ -34,8 +41,9 @@ import numpy as np
 
 from mm3d_tpu_torch.models.registry import available
 from mm3d_tpu_torch.ops.dispatch import MODES
-from mm3d_tpu_torch.train import (add_dataset_args, build_cli_datasets,
-                                  check_device, load_torch_into_trainer,
+from mm3d_tpu_torch.train import (add_backend_arg, add_dataset_args,
+                                  build_cli_datasets, check_device,
+                                  init_distributed, load_torch_into_trainer,
                                   strict_fp32)
 
 
@@ -90,7 +98,12 @@ def parse_args(argv=None):
                    help="scene tiling block edge (meters)")
     p.add_argument("--stride", type=float, default=0.5,
                    help="scene tiling stride (meters)")
+    p.add_argument("--point_shard", type=int, default=0, metavar="MIN_N",
+                   help="split the point axis of eval blocks with >= MIN_N "
+                        "points over the ranks (0 = off): sharded FPS, ball "
+                        "query, kNN and SA / FP tails, exact semantics")
     add_dataset_args(p)
+    add_backend_arg(p)
     return p.parse_args(argv)
 
 
@@ -335,12 +348,18 @@ def main(argv=None):
         ds_args.dataset = "synthetic"
     _, test_ds = build_cli_datasets(ds_args, spec.task, npoint,
                                     test_only=True)
-    with dispatch.use_impl(a.impl):
-        trainer = Trainer(cfg, test_ds=test_ds)
-        try:
-            return _main_with_trainer(a, trainer, npoint)
-        finally:
-            trainer.close()
+    joined = init_distributed(a.backend, a.device)
+    try:
+        with dispatch.use_impl(a.impl):
+            trainer = Trainer(cfg, test_ds=test_ds)
+            try:
+                return _main_with_trainer(a, trainer, npoint)
+            finally:
+                trainer.close()
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 def restore_best(trainer, log_dir):
@@ -359,6 +378,8 @@ def restore_best(trainer, log_dir):
 
 
 def _main_with_trainer(a, trainer, npoint):
+    if trainer.idle:  # a rank past the batch's data-parallel width
+        return {}
     if a.torch_ckpt:
         load_torch_into_trainer(trainer, a.torch_ckpt)
     else:
@@ -366,16 +387,27 @@ def _main_with_trainer(a, trainer, npoint):
         trainer.log.info("restored checkpoint step %s from %s", step,
                          a.log_dir)
     if a.export:
+        if not trainer.is_main:
+            return {}
         result = _export_serving_cli(a, trainer)
         trainer.log.info("export: %s", result)
         print(result)
         return result
-    if a.scene:
-        result = _eval_scene(a, trainer, npoint)
-    else:
-        result = _eval_and_vote(a, trainer)
+    shard = contextlib.nullcontext()
+    if a.point_shard:
+        from mm3d_tpu_torch.parallel import make_mesh, point_shard
+        # the Trainer's data ranks (or this process alone); the context
+        # stays open through the vote passes and the rooms, as in JAX
+        mesh = trainer.mesh if trainer.mesh is not None else make_mesh()
+        shard = point_shard(mesh, min_points=a.point_shard)
+    with shard:
+        if a.scene:
+            result = _eval_scene(a, trainer, npoint)
+        else:
+            result = _eval_and_vote(a, trainer)
     trainer.log.info("eval: %s", result)
-    print(result)
+    if trainer.is_main:
+        print(result)
     return result
 
 

@@ -12,11 +12,18 @@ exits with a message instead. The kernels' build cache is keyed by digest
 (``ops/_build.py``), so there is no compilation cache to switch on. TF32 is
 turned off for the run (strict fp32). ``main(argv)`` returns the result of
 ``Trainer.fit``.
+
+Under ``torchrun --nproc_per_node K`` (its rank and world size in the
+environment) every process joins one process group over ``--backend``
+(default ``nccl`` on the card, ``gloo`` on the CPU; ranks that share one
+card need ``gloo``) and the Trainer trains data-parallel; only rank 0
+writes the run directory and checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from mm3d_tpu_torch.data.loaders import REAL_DATASETS
@@ -75,7 +82,34 @@ def parse_args(argv=None):
                    help="a random FPS start per train step, as the lineage "
                         "seeds FPS in training; eval stays deterministic")
     add_dataset_args(p)
+    add_backend_arg(p)
     return p.parse_args(argv)
+
+
+def add_backend_arg(p):
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend under torchrun (default: "
+                        "nccl with --device cuda, gloo with --device cpu; "
+                        "ranks sharing one card need gloo)")
+
+
+def init_distributed(backend, device: str) -> bool:
+    """Under ``torchrun`` (WORLD_SIZE in the environment) join its process
+    group over ``backend`` (None: nccl on the card, gloo on the CPU), each
+    rank on card LOCAL_RANK modulo the cards there are. Returns whether a
+    group was initialised here (the caller destroys it)."""
+    import torch
+    import torch.distributed as dist
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    from mm3d_tpu_torch.parallel import init_parallel
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    init_parallel(backend or ("nccl" if device == "cuda" else "gloo"),
+                  int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                  "env://", timeout=600.0)
+    return True
 
 
 def add_dataset_args(p):
@@ -176,16 +210,22 @@ def main(argv=None):
         bn_refresh_steps=a.bn_refresh_steps,
         fps_random_start=a.fps_random_start, device=a.device)
     train_ds, test_ds = build_cli_datasets(a, spec.task, npoint)
-    with dispatch.use_impl(a.impl):
-        trainer = Trainer(cfg, train_ds=train_ds, test_ds=test_ds)
-        try:
-            if a.torch_ckpt:
-                load_torch_into_trainer(trainer, a.torch_ckpt)
-            result = trainer.fit()
-            trainer.log.info("final: %s", result)
-            return result
-        finally:
-            trainer.close()
+    joined = init_distributed(a.backend, a.device)
+    try:
+        with dispatch.use_impl(a.impl):
+            trainer = Trainer(cfg, train_ds=train_ds, test_ds=test_ds)
+            try:
+                if a.torch_ckpt:
+                    load_torch_into_trainer(trainer, a.torch_ckpt)
+                result = trainer.fit()
+                trainer.log.info("final: %s", result)
+                return result
+            finally:
+                trainer.close()
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

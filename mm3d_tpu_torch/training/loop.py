@@ -25,7 +25,18 @@ which keeps the best three by the task's ``BEST_METRIC``, and into
 the resumed run is bit for bit the uninterrupted one. A checkpoint restores
 onto the device type it was written on.
 
-Not ported yet: the data-parallel mesh.
+Data parallelism (``loop.py:141-155,272-274`` of the JAX package): in a
+process initialised into a ``torch.distributed`` group, the Trainer trains
+over the first ``dp`` ranks, ``dp`` the
+largest divisor of the batch at most the world size
+(``parallel.data_parallel``); the other ranks are idle (``fit`` and
+``evaluate`` return ``{}``). Every rank reads the same global batches and
+the steps compute the single-process steps on them (each rank's rows, the
+global batch's BN statistics and draws, gradients summed over the ranks),
+so every rank holds the same state. Only rank 0 writes the run directory,
+the metrics and the checkpoints; a resumed state is read by rank 0 and
+broadcast, so every rank restores the same one. Without a process group
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -37,11 +48,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mm3d_tpu_torch.data import augment as aug
 from mm3d_tpu_torch.data import synthetic as syn
 from mm3d_tpu_torch.data.pipeline import DataPipeline
 from mm3d_tpu_torch.models import get_model, init_params
+from mm3d_tpu_torch.parallel.data_parallel import make_data_mesh
+from mm3d_tpu_torch.parallel.mesh import broadcast_object, replicate
 from mm3d_tpu_torch.training import schedules, steps
 from mm3d_tpu_torch.training.state import (load_train_state,
                                            make_optimizer, make_train_state)
@@ -138,9 +152,30 @@ def build_datasets(cfg: TrainConfig, task: str = "fusion_cls"):
     return mk(cfg.train_size, "train"), mk(cfg.test_size, "test")
 
 
+class _NullLog:
+    """The logger of a rank that writes nothing (every rank but 0)."""
+
+    def info(self, msg: str, *args):
+        pass
+
+    def log_metrics(self, step: int, metrics: dict, prefix: str = ""):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, train_ds=None, test_ds=None):
         self.cfg = cfg
+        # data parallelism: the initialised world's first dp ranks (the
+        # others idle); none without a process group
+        self.mesh, self.idle = None, False
+        if dist.is_available() and dist.is_initialized():
+            self.mesh = make_data_mesh(cfg.batch_size)
+            self.idle = self.mesh is None
+        self.is_main = not self.idle and (self.mesh is None
+                                          or self.mesh.rank == 0)
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -181,6 +216,9 @@ class Trainer:
         self.model = init_params(
             self.spec.builder(dtype=_DTYPES[cfg.dtype], **kwargs),
             cfg.seed).to(self.device)
+        if self.mesh is not None:
+            replicate(self.mesh, [*self.model.parameters(),
+                                  *self.model.buffers()])
         # eval in eval_dtype on the same parameters: a second module of
         # that dtype, refilled from the trained one before each eval
         self.eval_model = self.model
@@ -206,14 +244,14 @@ class Trainer:
             self.model, self.spec.loss, self.optimizer, self.task,
             augment_names=augs, class_weights=cw, generator=self.generator,
             fps_generator=self.fps_generator,
-            num_category=cfg.num_category)
+            num_category=cfg.num_category, mesh=self.mesh)
         self._bn_refresh_n = cfg.bn_refresh_steps
         if self._bn_refresh_n is None:
             self._bn_refresh_n = 8 if cfg.dtype == "bfloat16" else 0
         self.bn_refresh_step = (steps.make_bn_refresh_step(
             self.model, self.task, augment_names=augs,
-            generator=self.generator, num_category=cfg.num_category)
-            if self._bn_refresh_n else None)
+            generator=self.generator, num_category=cfg.num_category,
+            mesh=self.mesh) if self._bn_refresh_n else None)
         eval_kwargs = {}
         if self.task == "partseg":
             # each category's global part range (``loop.py:232-238``)
@@ -223,15 +261,21 @@ class Trainer:
                            "max_parts": int(count.max())}
         self.eval_step = steps.make_eval_step(
             self.eval_model, self.spec.loss, self.task, self.num_classes,
-            class_weights=cw, num_category=cfg.num_category, **eval_kwargs)
+            class_weights=cw, num_category=cfg.num_category, mesh=self.mesh,
+            **eval_kwargs)
         self.history = []
         # train steps taken over the run, resumed ones included
         self.step = 0
 
-        self.run_dir = create_run_dir(cfg.log_dir, self.task, cfg.run_name)
-        self.log = MetricsLogger(self.run_dir)
+        # only rank 0 writes: the run directory, its logs, the checkpoints
+        self.run_dir = None
+        self.log = _NullLog()
         self.ckpt = self.ckpt_latest = None
-        if cfg.checkpoint:
+        if self.is_main:
+            self.run_dir = create_run_dir(cfg.log_dir, self.task,
+                                          cfg.run_name)
+            self.log = MetricsLogger(self.run_dir)
+        if self.is_main and cfg.checkpoint:
             self.ckpt = CheckpointManager(
                 os.path.join(self.run_dir, "checkpoints"),
                 best_metric=BEST_METRIC[self.task])
@@ -240,30 +284,37 @@ class Trainer:
             self.ckpt_latest = CheckpointManager(
                 os.path.join(self.run_dir, "checkpoints_latest"),
                 max_to_keep=1)
-        resume_from = None
-        if cfg.resume and self.ckpt_latest is not None:
-            if self.ckpt_latest.latest_step() is not None:
-                resume_from = self.ckpt_latest
-            elif self.ckpt.latest_step() is not None:
-                resume_from = self.ckpt
         self.start_epoch = 0
-        if resume_from is not None:
-            # read on the host, as saved; loading copies the model's and
-            # the optimizer's tensors onto the model's device
-            self.step = load_train_state(
-                resume_from.restore(map_location="cpu"), self.model,
-                self.optimizer, self.generator, self.fps_generator)
-            self.start_epoch = self.step // max(
-                self.train_pipe.steps_per_epoch(), 1)
-            self.log.info("resumed from step %d (epoch %d)", self.step,
-                          self.start_epoch)
-        elif cfg.resume:
+        if cfg.resume and not self.idle:
+            self._resume()
+
+    def _resume(self):
+        """Restore the newest state of the run (``checkpoints_latest/``,
+        else ``checkpoints/``): rank 0 reads it on the host and, with a
+        mesh, broadcasts it, so every rank restores the same state."""
+        state = None
+        if self.ckpt_latest is not None:
+            for mgr in (self.ckpt_latest, self.ckpt):
+                if mgr.latest_step() is not None:
+                    state = mgr.restore(map_location="cpu")
+                    break
+        if self.mesh is not None:
+            state = broadcast_object(state, self.mesh)
+        if state is None:
             # without run_name the run directory is a fresh one: training
             # from scratch there would drop the run meant to go on
             self.close()
             raise SystemExit(
                 f"resume: no checkpoint found under {self.run_dir}; pass the "
                 "run_name of the run to resume (and keep checkpointing on)")
+        # loading copies the model's and the optimizer's tensors onto the
+        # model's device
+        self.step = load_train_state(state, self.model, self.optimizer,
+                                     self.generator, self.fps_generator)
+        self.start_epoch = self.step // max(
+            self.train_pipe.steps_per_epoch(), 1)
+        self.log.info("resumed from step %d (epoch %d)", self.step,
+                      self.start_epoch)
 
     def train_state(self) -> dict:
         """What a checkpoint of this run holds
@@ -282,6 +333,8 @@ class Trainer:
     # ------------------------------------------------------------- epochs
 
     def train_epoch(self, epoch: int) -> dict:
+        if self.idle:
+            return {}
         cfg = self.cfg
         lr = schedules.step_lr(cfg.learning_rate, epoch, cfg.lr_step,
                                cfg.lr_gamma, cfg.min_lr)
@@ -308,6 +361,8 @@ class Trainer:
         return out
 
     def evaluate(self) -> dict:
+        if self.idle:
+            return {}
         if self.bn_refresh_step is not None:
             # a fixed epoch index far from the training epochs: its own
             # shuffle stream; max_steps bounds the producer too
@@ -352,6 +407,8 @@ class Trainer:
         return out
 
     def fit(self) -> dict:
+        if self.idle:
+            return {}
         best = -1.0
         best_key = BEST_METRIC[self.task]
         final_eval = {}

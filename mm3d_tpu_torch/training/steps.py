@@ -24,6 +24,9 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from mm3d_tpu_torch.data import augment as aug
+from mm3d_tpu_torch.parallel import data_parallel as dpar
+from mm3d_tpu_torch.parallel.point_shard import current as point_shard_ctx
+from mm3d_tpu_torch.parallel.mesh import Mesh, batch_slice
 from mm3d_tpu_torch.training.state import set_lr
 from mm3d_tpu_torch.utils import metrics as M
 
@@ -65,6 +68,25 @@ def _target(batch, task: str) -> torch.Tensor:
             else batch["label"])
 
 
+def _forward(model: torch.nn.Module, mesh: Optional[Mesh], args,
+             gather: bool = True, **kw):
+    """``model(*args, **kw)``; with a data-parallel ``mesh``, the model runs
+    on this rank's rows of the batch ``args`` (``parallel.data_parallel``)
+    and, with ``gather``, its tensor outputs are gathered back into the
+    global batch, differentiably."""
+    if mesh is None:
+        return model(*args, **kw)
+    B = args[0].shape[0]
+    rows = batch_slice(mesh, B)
+    with dpar.data_parallel(mesh, B):
+        out, aux = model(*(a[rows] for a in args), **kw)
+    if not gather:
+        return out, aux
+    aux = {k: dpar.gather_rows(v, mesh) if isinstance(v, torch.Tensor)
+           else v for k, v in (aux or {}).items()}
+    return dpar.gather_rows(out, mesh), aux
+
+
 def make_train_step(model: torch.nn.Module, loss_fn: Callable,
                     optimizer: torch.optim.Optimizer, task: str,
                     augment_names: Sequence[str] = (),
@@ -72,7 +94,8 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
                     generator: Optional[torch.Generator] = None,
                     fps_generator: Optional[torch.Generator] = None,
                     deterministic: Optional[bool] = None,
-                    num_category: int = 16) -> Callable:
+                    num_category: int = 16,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Returns step(batch, lr, bn_momentum) -> {loss, accuracy}
     (accuracy per cloud, or per point for ``partseg``, ``semseg`` and
     ``fusion_semseg``).
@@ -81,7 +104,13 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
     ``loss_fn``, backward, optimizer step at ``lr``. The loss and accuracy
     are those of the forward, before the update. ``deterministic`` is
     passed to the model (None: dropout on, as in training). After the step
-    each parameter's ``.grad`` holds the gradient it was updated with."""
+    each parameter's ``.grad`` holds the gradient it was updated with.
+
+    With a data-parallel ``mesh`` every rank passes the same global batch
+    and the step is the single-process step on it: augmented whole, the
+    forward on this rank's rows with the global batch's BN statistics and
+    draws, the loss on the gathered outputs, the gradients summed over the
+    ranks (``parallel.data_parallel``)."""
     _check_task(task)
     names = tuple(augment_names)
 
@@ -90,14 +119,14 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
         points, R = _augmented(batch, task, names, generator)
         target = _target(batch, task)
         optimizer.zero_grad(set_to_none=True)
-        log_probs, aux = model(*_model_args(batch, task, points, R,
-                                            num_category),
-                               bn_momentum=bn_momentum,
-                               deterministic=deterministic,
-                               generator=generator,
-                               fps_generator=fps_generator)
+        log_probs, aux = _forward(
+            model, mesh, _model_args(batch, task, points, R, num_category),
+            bn_momentum=bn_momentum, deterministic=deterministic,
+            generator=generator, fps_generator=fps_generator)
         loss = loss_fn(log_probs, target, aux, weight=class_weights)
         loss.backward()
+        if mesh is not None:
+            dpar.sync_gradients(model.parameters(), mesh)
         set_lr(optimizer, lr)
         optimizer.step()
         return {"loss": loss.detach(),
@@ -109,12 +138,15 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable,
 def make_bn_refresh_step(model: torch.nn.Module, task: str,
                          augment_names: Sequence[str] = (),
                          generator: Optional[torch.Generator] = None,
-                         num_category: int = 16) -> Callable:
+                         num_category: int = 16,
+                         mesh: Optional[Mesh] = None) -> Callable:
     """Returns step(batch): a forward-only train-mode pass at momentum 0.5
     that moves only the BN running statistics (no gradient, parameters and
     optimizer untouched). The Trainer runs a few before each eval in bf16
     mixed precision, where the running statistics otherwise lag the
-    activations (``steps.py:109-147`` of the JAX package)."""
+    activations (``steps.py:109-147`` of the JAX package). With a
+    data-parallel ``mesh``, as the train step: the global batch's
+    statistics and draws."""
     _check_task(task)
     names = tuple(augment_names)
 
@@ -122,8 +154,9 @@ def make_bn_refresh_step(model: torch.nn.Module, task: str,
     def step(batch):
         model.train()
         points, R = _augmented(batch, task, names, generator)
-        model(*_model_args(batch, task, points, R, num_category),
-              bn_momentum=0.5, generator=generator)
+        _forward(model, mesh, _model_args(batch, task, points, R,
+                                          num_category),
+                 gather=False, bn_momentum=0.5, generator=generator)
 
     return step
 
@@ -134,7 +167,8 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
                    num_category: int = 16,
                    part_start: Optional[torch.Tensor] = None,
                    part_count: Optional[torch.Tensor] = None,
-                   max_parts: int = 6) -> Callable:
+                   max_parts: int = 6,
+                   mesh: Optional[Mesh] = None) -> Callable:
     """Returns step(batch, valid=None) -> {loss, correct, count, cm}, or for
     ``partseg`` {loss, correct, count, ious, cats, valid}.
 
@@ -147,7 +181,13 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
     (``part_start`` / ``part_count`` [num_category], indexed by the
     batch's ``cat``) and returns each shape's mean part IoU (``ious`` [B]),
     its category and the row mask, which ``utils.metrics
-    .partseg_metrics_host`` reduces (``steps.py:207-222``)."""
+    .partseg_metrics_host`` reduces (``steps.py:207-222``).
+
+    With a data-parallel ``mesh`` every rank passes the same global batch,
+    runs the model on its rows and gathers the outputs, so the metrics
+    count every rank's valid rows and are the same on every rank. Under a
+    point-shard context the ranks split the points instead, each running
+    the whole batch."""
     _check_task(task)
 
     @torch.no_grad()
@@ -159,8 +199,9 @@ def make_eval_step(model: torch.nn.Module, loss_fn: Callable, task: str,
         vm = (torch.ones(B, dtype=torch.int32, device=points.device)
               if valid is None else valid.to(torch.int32))
         wm = vm.reshape((B,) + (1,) * (target.dim() - 1))
-        log_probs, aux = model(*_model_args(batch, task, points,
-                                            batch.get("R"), num_category))
+        rows_mesh = None if point_shard_ctx() is not None else mesh
+        log_probs, aux = _forward(model, rows_mesh, _model_args(
+            batch, task, points, batch.get("R"), num_category))
         loss = loss_fn(log_probs, target, aux, weight=class_weights,
                        row_mask=vm)
         count = vm.sum() * (target.numel() // max(B, 1))
