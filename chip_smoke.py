@@ -218,7 +218,28 @@ that goes wrong:
    7d: ``test --point_shard 2048`` on that run gives its metrics without
    the flag. ms a sharded call, forward or step beside the single-process
    one, collectives a call;
-8. prints the ``{"kernels": [...]}`` line, then, last, the
+8. the group-then-MLP blocks (``project_first=False``) and the
+   ``MM3D_BF16_DEBUG`` knob. 8a, fp32 (TF32 off) then bf16: the plain
+   ``SetAbstraction`` at pointnet2_cls_ssg's sa1 (with normals) and sa2
+   (B=128 x 1,024), ``SetAbstractionMsg`` at pointnet2_part_seg_msg's sa1
+   with normals (B=16 x 2,048) and ``FeaturePropagation`` at
+   pointnet2_sem_seg's fp1 (4,096 <- 1,024) and fp4 (64 <- 16), B=16: the
+   eval forward on the kernel path against the plain path, max|d| <= 1e-6
+   max|ref| (bit-identical recorded), with FPS and a ball query a scale, or
+   three_nn and three_interpolate, and no fused kernel; in fp32 against the
+   project-first block carrying the same weights (1e-4, centroids bit for
+   bit); one train step (features requiring grad) against the plain path
+   in deterministic mode, phase 4's gates, with a gather backward a block,
+   a scale or (weighted) an FP block; ms a forward and a step beside the
+   project-first block's, peak memory, bf16 vs fp32 relative L2. 8b, the
+   variable set before each model is built and restored after:
+   pointnet2_cls_ssg bf16 at B=128 under ``sa,head`` equal to the fp32
+   model (1e-6) with fp32 serving's launches, and under ``sa_bn`` the
+   fused SA kernel twice in its f32 form (the loop kernel); pointnet2_sem_seg
+   bf16 at B=16 x 4,096 under ``fp``, the fused FP kernel four times in its
+   f32 form; kernel vs plain path 1e-4 and argmax vs fp32 >= 0.95 under
+   both; ms a forward beside the unforced bf16 model's;
+9. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX or of the JAX package. The details also go to
@@ -4059,6 +4080,368 @@ def parallel_phase(torch, cuda_kernels, dev, work):
     return out
 
 
+# ------------------------------------------------------------ phase 8
+
+# 8a: the group-then-MLP blocks (project_first=False) at the widths of the
+# models they come from: (label, block, constructor arguments, B, N, M):
+# pointnet2_cls_ssg's sa1 (with normals, so its features take a gradient)
+# and sa2 at B=128; pointnet2_part_seg_msg's sa1 with normals at B=16 x
+# 2,048; pointnet2_sem_seg's fp1 (4,096 <- 1,024) and fp4 (64 <- 16) at B=16
+PLAIN_BLOCKS = (
+    ("ssg sa1", "ssg", dict(npoint=512, radius=0.2, nsample=32,
+                            in_channels=3, mlp=(64, 64, 128)),
+     BATCH, NPOINT, None),
+    ("ssg sa2", "ssg", dict(npoint=128, radius=0.4, nsample=64,
+                            in_channels=128, mlp=(128, 128, 256)),
+     BATCH, 512, None),
+    ("msg sa1", "msg", dict(npoint=512, radius_list=(0.1, 0.2, 0.4),
+                            nsample_list=(32, 64, 128),
+                            mlp_list=((32, 32, 64), (64, 64, 128),
+                                      (64, 96, 128)), in_channels=6),
+     PART_BATCH, PART_NPOINT, None),
+    ("fp1", "fp", dict(skip_channels=0, sparse_channels=128,
+                       mlp=(128, 128, 128)), SCENE_BATCH, SCENE_NPOINT, 1024),
+    ("fp4", "fp", dict(skip_channels=256, sparse_channels=512,
+                       mlp=(256, 256)), SCENE_BATCH, 64, 16))
+# launches of an eval forward (no fused kernel) and the gather backwards a
+# train step adds (weighted for FP)
+PLAIN_LAUNCHES = {"ssg": {"farthest_point_sample": 1, "query_ball_point": 1},
+                  "msg": {"farthest_point_sample": 1, "query_ball_point": 3},
+                  "fp": {"three_nn": 1, "three_interpolate": 1}}
+PLAIN_BACKWARDS = {"ssg": 1, "msg": 3, "fp": 1}
+KNOB = "MM3D_BF16_DEBUG"
+
+
+def plain_block(kind, kw, dtype, project_first=False):
+    from mm3d_tpu_torch.models import pointnet2
+    cls = {"ssg": pointnet2.SetAbstraction, "msg": pointnet2.SetAbstractionMsg,
+           "fp": pointnet2.FeaturePropagation}[kind]
+    return cls(dtype=dtype, project_first=project_first, **kw)
+
+
+def plain_to_proj(state):
+    """A plain block's state as its project-first twin's (the map of
+    tests/test_project_first.py): ``mlp{s}``'s first layer becomes
+    ``proj_kernel{s}`` / ``proj_bias{s}`` / ``proj_bn{s}``, the others
+    ``mlp_rest{s}``."""
+    out = {}
+    for name, t in state.items():
+        head, layer, leaf = name.split(".")
+        s = head[3:]  # "" or "_i", an MSG scale
+        kind, i = layer.split("_")
+        if int(i) == 0:
+            key = (f"proj_{leaf}{s}" if kind == "dense"
+                   else f"proj_bn{s}.{leaf}")
+        else:
+            key = f"mlp_rest{s}.{kind}_{int(i) - 1}.{leaf}"
+        out[key] = t
+    return out
+
+
+def plain_inputs(torch, dev, kind, kw, B, N, M, seed):
+    """Unit-sphere clouds and N(0,1) features: (xyz, feats) for SA; (dense
+    xyz, sparse xyz, skip features or None, sparse features) for FP."""
+    r = np.random.RandomState(seed)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    if kind != "fp":
+        return [t(unit_sphere_clouds(r, B, N)),
+                t(r.randn(B, N, kw["in_channels"]).astype(np.float32))]
+    skip = kw["skip_channels"]
+    return [t(unit_sphere_clouds(r, B, N)), t(unit_sphere_clouds(r, B, M)),
+            t(r.randn(B, N, skip).astype(np.float32)) if skip else None,
+            t(r.randn(B, M, kw["sparse_channels"]).astype(np.float32))]
+
+
+def _feats(out):
+    return out[1] if isinstance(out, tuple) else out
+
+
+def block_step(block, inputs, grad_at):
+    """One train forward and backward of a block (loss: the mean square of
+    its output), the inputs at ``grad_at`` requiring grad -> (loss, their
+    gradients)."""
+    ins = [None if a is None else a.detach().clone().requires_grad_(
+        i in grad_at) for i, a in enumerate(inputs)]
+    block.zero_grad(set_to_none=True)
+    loss = _feats(block(*ins)).float().square().mean()
+    loss.backward()
+    return loss.detach(), [ins[i].grad for i in grad_at]
+
+
+def plain_blocks(torch, ops, cuda_kernels, dev):
+    """Phase 8a: each plain block at full width, fp32 (TF32 off) then
+    bf16: the eval forward on the kernel path against the plain path
+    (max|d| <= 1e-6 max|ref|, bit-identical recorded) and its launches; in
+    fp32 against the project-first block carrying the same weights (1e-4,
+    centroids bit for bit); one train step against the plain path in
+    deterministic mode (phase 4's gates, the features' gradients too) and
+    its gather backwards; recorded: ms a forward and a step beside the
+    project-first block's, peak memory, bf16 vs fp32 relative L2."""
+    import copy
+
+    from mm3d_tpu_torch.models import init_params
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    out = {"launches": expect(cuda_kernels), "blocks": {}}
+
+    def add(counts):
+        for k, v in counts.items():
+            out["launches"][k] += v
+
+    for i, (label, kind, kw, B, N, M) in enumerate(PLAIN_BLOCKS):
+        inputs = plain_inputs(torch, dev, kind, kw, B, N, M, 70 + i)
+        grad_at = [j for j, a in enumerate(inputs)
+                   if a is not None and j >= (2 if kind == "fp" else 1)]
+        base = init_params(plain_block(kind, kw, None), seed=i)
+        nontrivial_bn(base, seed=i + 1)
+        state = base.state_dict()
+        res, ref32 = {}, None
+        for dtname, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+            r = {}
+            blk = plain_block(kind, kw, dtype)
+            blk.load_state_dict(state)
+            blk.to(dev).eval()
+            proj = plain_block(kind, kw, dtype, project_first=True)
+            proj.load_state_dict(plain_to_proj(state))
+            proj.to(dev).eval()
+            with torch.no_grad():
+                cuda_kernels.reset_launches()
+                got = blk(*inputs)
+                torch.cuda.synchronize()
+                counts = launch_counts(cuda_kernels)
+                add(counts)
+                want = expect(cuda_kernels, **PLAIN_LAUNCHES[kind])
+                check(counts == want, f"8a {label} {dtname} eval launches "
+                                      f"{counts}, want {want}")
+                with ops.use_impl("torch"):
+                    plain = blk(*inputs)
+                g, p = _feats(got), _feats(plain)
+                check(g.dtype == p.dtype and g.shape == p.shape,
+                      f"8a {label} {dtname}: {g.dtype} {tuple(g.shape)}")
+                check(bool(torch.isfinite(g).all()), f"8a {label}: "
+                                                     "non-finite")
+                d = float((g.float() - p.float()).abs().max())
+                top = float(p.float().abs().max())
+                check(d <= 1e-6 * top, f"8a {label} {dtname} kernel vs "
+                                       f"plain max|d| {d} > 1e-6 x {top}")
+                r["kernel_vs_plain"] = {"max_abs": d, "max_ref": top,
+                                        "bit_identical": torch.equal(g, p)}
+                if isinstance(got, tuple):
+                    check(torch.equal(got[0], plain[0]),
+                          f"8a {label}: centroids differ")
+                if dtype is None:
+                    ref32 = g.float()
+                    q = proj(*inputs)
+                    dq = float((_feats(q) - g).abs().max())
+                    check(torch.allclose(_feats(q), g, rtol=1e-4, atol=1e-4),
+                          f"8a {label} plain vs project-first max|d| {dq}")
+                    if isinstance(got, tuple):
+                        check(torch.equal(q[0], got[0]), f"8a {label}: "
+                              "centroids differ from the project-first "
+                              "block's")
+                    r["plain_vs_project_first_max_abs"] = dq
+                else:
+                    r["bf16_vs_fp32_rel_l2"] = float(
+                        (g.float() - ref32).norm() / ref32.norm())
+                torch.cuda.reset_peak_memory_stats(dev)
+                blk(*inputs)
+                r["forward_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+                r["forward_ms"] = {
+                    "plain": cuda_ms(torch, lambda: blk(*inputs), 5),
+                    "project_first": cuda_ms(torch, lambda: proj(*inputs),
+                                             5)}
+            # one train step, kernel path vs the deterministic plain path
+            kblk = blk.train()
+            pblk = copy.deepcopy(kblk)
+            cuda_kernels.reset_launches()
+            lk, gk = block_step(kblk, inputs, grad_at)
+            torch.cuda.synchronize()
+            counts = launch_counts(cuda_kernels)
+            add(counts)
+            want = expect(cuda_kernels, **dict(
+                PLAIN_LAUNCHES[kind], gather_backward=PLAIN_BACKWARDS[kind]))
+            check(counts == want, f"8a {label} {dtname} step launches "
+                                  f"{counts}, want {want}")
+            with ops.use_impl("torch"):
+                torch.use_deterministic_algorithms(True)
+                try:
+                    lp, gp = block_step(pblk, inputs, grad_at)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            torch.cuda.synchronize()
+            step = step_parity(torch, f"8a {label} {dtname}", dtype, kblk,
+                               pblk, {"loss": lk}, {"loss": lp})
+            rel = BF16_GRAD_REL if dtype is not None else GRAD_REL
+            for a, b in zip(gk, gp):
+                da = float((a.float() - b.float()).abs().max())
+                sb = float(b.float().abs().max())
+                check(da <= rel * sb + GRAD_ABS, f"8a {label} {dtname}: "
+                      f"input gradient max|d| {da} vs max|g| {sb}")
+            step["bit_identical"] = (
+                torch.equal(lk, lp)
+                and all(torch.equal(a, b) for a, b in zip(gk, gp))
+                and all(torch.equal(x.grad, y.grad) for x, y in zip(
+                    kblk.parameters(), pblk.parameters())))
+            r["step"] = step
+            pproj = proj.train()
+            r["step_ms"] = {
+                "plain": cuda_ms(torch, lambda: block_step(
+                    kblk, inputs, grad_at), 3),
+                "project_first": cuda_ms(torch, lambda: block_step(
+                    pproj, inputs, grad_at), 3)}
+            print(f"8a {label} {dtname} (B={B}, N={N}"
+                  + (f", M={M}" if M else "") + f"): {r}", flush=True)
+            res[dtname] = r
+            del blk, proj, kblk, pblk, pproj
+            torch.cuda.empty_cache()
+        out["blocks"][label] = res
+    return out
+
+
+class knob_env:
+    """``MM3D_BF16_DEBUG`` set to ``value`` inside, restored on exit."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.prev = os.environ.get(KNOB)
+        os.environ[KNOB] = self.value
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop(KNOB, None)
+        else:
+            os.environ[KNOB] = self.prev
+
+
+class launch_flags:
+    """Records each launch's symbol and first argument (the launchers'
+    bf16 flag) inside, through ``cuda_kernels._launch``."""
+
+    def __init__(self, cuda_kernels):
+        self.ck, self.seen = cuda_kernels, []
+
+    def __enter__(self):
+        self.launch = self.ck._launch
+
+        def record(symbol, *a):
+            self.seen.append((symbol, a[0]))
+            return self.launch(symbol, *a)
+
+        self.ck._launch = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ck._launch = self.launch
+
+    def forms(self, symbol):
+        """The set of bf16 flags ``symbol`` launched with."""
+        return {f for s, f in self.seen if s == symbol}
+
+
+def bf16_knob(torch, ops, cuda_kernels, dev):
+    """Phase 8b: ``MM3D_BF16_DEBUG`` on bf16 serving, the variable set
+    before each model is built and restored after. pointnet2_cls_ssg B=128:
+    under ``sa,head`` the log-probs equal the fp32 model's (1e-6; bit for
+    bit expected) with fp32 serving's launches; under ``sa_bn`` the fused
+    SA kernel twice in its f32 form, kernel vs plain path 1e-4, argmax vs
+    fp32 >= 0.95. pointnet2_sem_seg B=16 x 4,096 under ``fp``: the fused FP
+    kernel four times in its f32 form, the same two gates per point.
+    Recorded: ms a forward beside the unforced bf16 model's."""
+    from mm3d_tpu_torch.data.synthetic import scene_request
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    out = {"launches": expect(cuda_kernels)}
+
+    def run(pred, x, symbol):
+        """One forward on the kernel path: log-probs, launches, the forms
+        ``symbol`` launched in."""
+        cuda_kernels.reset_launches()
+        with launch_flags(cuda_kernels) as fl:
+            lp = pred(x)
+            torch.cuda.synchronize()
+        counts = launch_counts(cuda_kernels)
+        for k, v in counts.items():
+            out["launches"][k] += v
+        return lp, counts, fl.forms(symbol)
+
+    cases = (("pointnet2_cls_ssg", NUM_CLASS, torch.from_numpy(
+        unit_sphere_clouds(np.random.RandomState(80), BATCH, NPOINT)).to(dev),
+        "mm3d_fused_sa", ("sa,head", "sa_bn")),
+             ("pointnet2_sem_seg", SEG_CLASSES, torch.from_numpy(
+                 scene_request(SCENE_BATCH, SCENE_NPOINT, seed=81)[0]).to(
+                     dev), "mm3d_fused_fp", ("fp",)))
+    for name, ncls, x, symbol, knobs in cases:
+        model = init_params(get_model(name).builder(num_class=ncls), seed=0)
+        nontrivial_bn(model, seed=1)
+        state = model.state_dict()
+        p32 = make_predictor(name, state, device=dev, num_class=ncls)
+        p16 = make_predictor(name, state, dtype=torch.bfloat16, device=dev,
+                             num_class=ncls)
+        lp32, c32, _ = run(p32, x, symbol)
+        lp16, c16, f16 = run(p16, x, symbol)
+        res = {"fp32_launches": c32, "bf16_launches": c16,
+               "bf16_forms": sorted(f16),
+               "forward_ms": {"float32": cuda_ms(torch, lambda: p32(x), 10),
+                              "bfloat16": cuda_ms(torch, lambda: p16(x),
+                                                  10)}}
+        for value in knobs:
+            with knob_env(value):
+                pk = make_predictor(name, state, dtype=torch.bfloat16,
+                                    device=dev, num_class=ncls)
+                lp, counts, forms = run(pk, x, symbol)
+                with ops.use_impl("torch"):
+                    plain = pk(x)
+                ms = cuda_ms(torch, lambda: pk(x), 10)
+                kernel = ("sa_loop_kernel" if symbol == "mm3d_fused_sa"
+                          else "fused_fp_kernel")
+                dev_t = times(torch, lambda: pk(x), 5, kernel=kernel)
+            check(lp.dtype == torch.float32 and bool(torch.isfinite(lp).all()),
+                  f"8b {name} {value}: {lp.dtype} or non-finite")
+            d_plain = float((lp - plain).abs().max())
+            d32 = float((lp - lp32).abs().max())
+            agree = float((lp.argmax(-1) == lp32.argmax(-1)).float().mean())
+            r = {"launches": counts, "forms": sorted(forms),
+                 "kernel_vs_plain_max_abs": d_plain, "vs_fp32_max_abs": d32,
+                 "vs_fp32_bit_identical": torch.equal(lp, lp32),
+                 "argmax_vs_fp32": agree, "forward_ms": ms,
+                 "device": dev_t}
+            if value == "sa,head":
+                check(counts == c32, f"8b {name} {value} launches {counts}, "
+                                     f"want fp32 serving's {c32}")
+                check(d32 <= 1e-6, f"8b {name} {value} vs fp32 {d32}")
+            else:
+                # the forced component's fused kernel, in its f32 form
+                # alone, as many launches as unforced bf16 serving
+                want = {"mm3d_fused_sa": "fused_sa",
+                        "mm3d_fused_fp": "fused_fp"}[symbol]
+                check(counts == c16 and counts[want] > 0 and forms == {0},
+                      f"8b {name} {value}: launches {counts} forms {forms}, "
+                      f"want {c16} in f32")
+                check(f16 == {1}, f"8b {name}: unforced forms {f16}")
+                check(d_plain <= 1e-4, f"8b {name} {value} kernel vs plain "
+                                       f"{d_plain}")
+                check(agree >= 0.95, f"8b {name} {value} argmax vs fp32 "
+                                     f"{agree}")
+                check(dev_t["kernel_ms"] > 0, f"8b {name} {value}: no "
+                                              f"{kernel} on the card")
+            print(f"8b {name} bf16 under {KNOB}={value}: {r}", flush=True)
+            res[value] = r
+            del pk
+        print(f"8b {name} unforced: {res['forward_ms']} ms, launches "
+              f"{c16}", flush=True)
+        out[name] = res
+        del p32, p16
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
     named (fused SA, given-index fused SA and fused FP: bf16 serving;
@@ -4219,6 +4602,9 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     mark("7")
+    plain = plain_blocks(torch, ops, cuda_kernels, dev)  # 8a
+    knob = bf16_knob(torch, ops, cuda_kernels, dev)  # 8b
+    mark("8")
     phase_s = {"build": build_s}
     phase_s.update((k, t - marks[i][1]) for i, (k, t) in enumerate(marks[1:]))
     print(f"seconds a phase: {phase_s}", flush=True)
@@ -4227,12 +4613,13 @@ def main():
     # exported artifacts over HTTP, one epoch of Trainer.fit of
     # fusion_cls, fusion_sem_seg, pointnet2_cls_knn, pointnet2_part_seg_msg,
     # pointnet_cls and pointnet2_sem_seg (fp32 + bf16), the resumed
-    # fusion_cls runs, the four vote steps (bf16 + fp32) and the train and
-    # test CLIs
+    # fusion_cls runs, the four vote steps (bf16 + fp32), the train and
+    # test CLIs, the parallel layer, the plain blocks (forwards and steps)
+    # and bf16 serving under MM3D_BF16_DEBUG
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
               *served_pn.values(), *served_tops.values(), artifacts, trained,
               trained_seg, trained_knn, trained_part, trained_pn,
-              trained_scene, resumed, voted, cli, parallel)
+              trained_scene, resumed, voted, cli, parallel, plain, knob)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
     kernels = kernels_line(rows, main_launches)
@@ -4257,6 +4644,7 @@ def main():
                    "train_pointnet2_part_seg_msg": trained_part,
                    "train_resume": resumed, "vote_eval": voted,
                    "entry_points": cli, "parallel": parallel,
+                   "plain_blocks": plain, "bf16_debug": knob,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -57,10 +57,15 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor, f32: bool = False) -> torch.Tensor:
+        """x @ kernel + bias in the compute dtype; with none (f32, or no
+        dtype) x is promoted with the kernel, as flax's ``promote_dtype``
+        does (a bf16 x gives f32)."""
         k, b = self.kernel, self.bias
         dt = None if f32 else self.dtype
         if dt is not None:
             x, k, b = x.to(dt), k.to(dt), b.to(dt)
+        else:
+            x = x.to(torch.promote_types(x.dtype, k.dtype))
         return torch.matmul(x, k) + b
 
 
@@ -198,13 +203,13 @@ class BatchNorm(nn.Module):
             scale, bias = scale.reshape(shape), bias.reshape(shape)
         return (x - mean) * inv * scale + bias
 
-    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def fold(self, f32: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """The affine map (A, C) with BN(x) == x * A + C, computed in f32
         and cast to the compute dtype (``layers.py:122-131`` of the JAX
-        package)."""
+        package); ``f32`` keeps it in f32 whatever the module's dtype."""
         A = self.scale * torch.rsqrt(self.var + self.eps)
         C = self.bias - self.mean * A
-        if self.dtype is not None:
+        if self.dtype is not None and not f32:
             A, C = A.to(self.dtype), C.to(self.dtype)
         return A, C
 
@@ -235,15 +240,17 @@ class SharedMLP(nn.Module):
                 x = torch.relu(x)
         return x
 
-    def fold(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def fold(self, f32: bool = False
+             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """[(W_i', b_i')] with relu(x @ W' + b') == relu(BN(Dense(x))),
-        in the compute dtype, rounded where the JAX package rounds."""
+        in the compute dtype (f32 with ``f32``), rounded where the JAX
+        package rounds."""
         folded = []
         for i in range(len(self.features)):
             d = getattr(self, f"dense_{i}")
-            A, C = getattr(self, f"bn_{i}").fold()
+            A, C = getattr(self, f"bn_{i}").fold(f32)
             k, b = d.kernel, d.bias
-            if self.dtype is not None:
+            if self.dtype is not None and not f32:
                 k, b = k.to(self.dtype), b.to(self.dtype)
             folded.append((k * A[None, :], b * A + C))
         return folded

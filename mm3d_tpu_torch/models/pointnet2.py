@@ -47,14 +47,34 @@ the JAX gates (``_point_shard``) splits its points over the ranks:
 a scale), or ``sharded_fp`` for the FP tail; a data-parallel train step
 draws the FPS start of the global batch (``_fps_start``).
 
+The lineage's group-then-MLP form, ``project_first=False`` (the default is
+True, and no model sets it, in JAX either): ``SetAbstraction``
+(``:142-163``: ``sample_and_group``, the whole ``mlp``, max),
+``SetAbstractionMsg`` (``:401-411``: one ``mlp_{i}`` a scale, with no dtype)
+and ``FeaturePropagation`` (``:442-454``: interpolate the sparse features,
+put the skip features first, the whole ``mlp``). They run the FPS, ball
+query, three_nn and three_interpolate kernels and, in training, the gather
+backward, never a fused kernel, and never shard; each class docstring lists
+the JAX quirks kept.
+
+``MM3D_BF16_DEBUG`` (``_dbg_dtype``, ``:30-36``): a comma list of components
+a bf16 model computes in f32; unset or empty it changes nothing. Flax reads
+it each time a module is traced; the port reads the model-level components
+(``sa``, ``sa1``-``sa4``, ``fp``, ``head`` of ``PointNet2ClsSSG`` and
+``PointNet2SemSeg``, ``:531-553,691-720``) when the model is built, and the
+block-level ones (``sa_bn``, ``sa_rest``, ``sa_h`` of the project-first
+``SetAbstraction``, ``:207-211,292``) at each forward, through the layers'
+call-time ``f32`` flags. A forced ``sa`` takes a bf16 classifier's SA
+blocks off the fused SA kernel; a forced ``sa_bn`` gives the fused kernel
+f32 operands, so it runs its f32 form, as JAX's does.
+
 Train or eval is the module's ``training`` flag. The dtype casts sit where
-the JAX module puts them. Still to be ported: the ``MM3D_BF16_DEBUG`` knob
-(``:30-36``, which returns the dtype unchanged when unset) and
-``project_first=False`` (``:142-163``, ``:393-405``, ``:442-454``).
+the JAX module puts them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -69,6 +89,15 @@ from mm3d_tpu_torch.parallel.sharded_fps import sharded_fps
 from mm3d_tpu_torch.models.layers import (BatchNorm, Dense, Dropout,
                                           SharedMLP, guarded_train_dtype,
                                           lecun_normal_, log_softmax_head)
+
+
+def _dbg_dtype(component: str, dtype):
+    """bf16 numerics bisection knob (debug only), ``pointnet2.py:30-36``:
+    ``MM3D_BF16_DEBUG`` is a comma list of components forced back to f32
+    (e.g. "sa" or "head"; exact names, so "sa" does not force "sa1"). Unset
+    or empty, it returns ``dtype`` unchanged."""
+    dbg = os.environ.get("MM3D_BF16_DEBUG", "")
+    return None if dbg and component in dbg.split(",") else dtype
 
 
 def _want_fused_sa(train: bool, mlp, dtype) -> bool:
@@ -161,7 +190,7 @@ def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
                 rest: Optional[SharedMLP], radius: Optional[float],
                 nsample: int, mlp: Sequence[int], dtype, dt, train: bool,
                 bn_momentum: float, knn: bool = False,
-                ps=None) -> torch.Tensor:
+                ps=None, dbg: bool = False) -> torch.Tensor:
     """One grouping scale of a project-first SA block -> [B,S,C_last]:
     the tail ``SetAbstraction`` runs once and ``SetAbstractionMsg`` once a
     scale (``pointnet2.py:232-300,338-392``).
@@ -179,7 +208,16 @@ def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
     two O(1) terms, and in bf16 that leaves ~5 bits of the local
     geometry). Under a point-shard context ``ps`` (``_point_shard``) the
     same folded tail runs over the ranks' tiles of the points
-    (``sharded_group``, ``pointnet2.py:202-230``)."""
+    (``sharded_group``, ``pointnet2.py:202-230``).
+
+    ``dbg`` (``SetAbstraction`` only: JAX's ``SetAbstractionMsg`` has no
+    such components) applies ``MM3D_BF16_DEBUG``'s ``sa_bn``, ``sa_rest``
+    and ``sa_h`` (``pointnet2.py:207-211,292``), read at this call: BN, the
+    rest of the MLP or the recentred rows of bf16 training in f32. A forced
+    ``sa_bn`` folds BN in f32, so ``pre * A`` promotes and the fused kernel
+    runs its f32 form, as ``fused_sa_pallas`` keys its form on pre's dtype."""
+    bn_f32 = dt is None or (dbg and _dbg_dtype("sa_bn", dt) is None)
+    rest_f32 = dt is None or (dbg and _dbg_dtype("sa_rest", dt) is None)
     cat32, kernel32, bias32 = cat, kernel, bias
     if dt is not None:
         cat, kernel, bias = cat.to(dt), kernel.to(dt), bias.to(dt)
@@ -187,8 +225,8 @@ def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
                           if knn else _want_fused_sa(train, mlp, dtype)):
         pre = torch.matmul(cat, kernel)  # [B,N,C1]
         cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
-        A, C = bn.fold()
-        (w1, b1), (w2, b2) = rest.fold()
+        A, C = bn.fold(bn_f32)
+        (w1, b1), (w2, b2) = rest.fold(rest_f32)
         pre, cbias = pre * A, (bias - cterm) * A + C
         if ps is not None and knn:
             idx = sg.sharded_knn_point(nsample, xyz, new_xyz, ps.mesh)
@@ -212,45 +250,56 @@ def _scale_tail(xyz: torch.Tensor, new_xyz: torch.Tensor, cat: torch.Tensor,
         pre32 = torch.matmul(cat32.float(), kernel32.float())
         ct32 = torch.matmul(new_xyz.float(), kernel32[:3].float())
         gathered = ops.index_points(pre32, idx)  # [B,S,K,C1] f32
-        h = (gathered - ct32[:, :, None, :] + bias32.float()).to(dt)
+        h_dt = (_dbg_dtype("sa_h", dt) if dbg else dt) or torch.float32
+        h = (gathered - ct32[:, :, None, :] + bias32.float()).to(h_dt)
     else:
         pre = torch.matmul(cat, kernel)  # [B,N,C1]
         cterm = torch.matmul(new_xyz.to(pre.dtype), kernel[:3])
         gathered = ops.index_points(pre, idx)  # [B,S,K,C1]
         h = gathered - cterm[:, :, None, :] + bias
-    f32 = dt is None
-    h = torch.relu(bn(h, momentum=bn_momentum, f32=f32))
+    h = torch.relu(bn(h, momentum=bn_momentum, f32=bn_f32))
     if rest is not None:
-        h = rest(h, bn_momentum, f32=f32)
+        h = rest(h, bn_momentum, f32=rest_f32)
     return h.amax(dim=2)
 
 
 class SetAbstraction(nn.Module):
-    """Single-scale grouping SA block, project-first form.
+    """Single-scale grouping SA block, project-first form by default.
 
     ``in_channels`` counts the feature channels besides xyz (0 for raw
     points). Parameters follow the flax tree: ``proj_kernel`` [3+D, C1],
-    ``proj_bias``, ``proj_bn`` and ``mlp_rest``; group_all blocks hold one
-    ``mlp``. ``f32_train_guard`` computes the block in f32 during bf16
-    training (serving stays bf16), as the JAX attribute does. ``knn`` groups
-    the ``nsample`` nearest points instead of the ball query (``radius`` is
-    then unused)."""
+    ``proj_bias``, ``proj_bn`` and ``mlp_rest``; group_all blocks, and
+    ``project_first=False`` ones, hold one ``mlp`` over [3+D].
+    ``f32_train_guard`` computes the block in f32 during bf16 training
+    (serving stays bf16), as the JAX attribute does. ``knn`` groups the
+    ``nsample`` nearest points instead of the ball query (``radius`` is then
+    unused).
+
+    ``project_first=False`` is the lineage's group-then-MLP form
+    (``pointnet2.py:142-163``): ``sample_and_group`` (FPS, the ball query,
+    the gathers), the whole MLP over [B,S,K,3+D] and the max, with JAX's
+    quirks kept: the MLP computes in the block's dtype (``f32_train_guard``
+    has no effect; only group_all has the bf16-training guard), ``knn`` is
+    ignored (always the ball query), the FPS start is ``_fps_start``'s, and
+    the block never shards under a point-shard context nor takes a fused
+    kernel."""
 
     def __init__(self, npoint: Optional[int] = None,
                  radius: Optional[float] = None,
                  nsample: Optional[int] = None, in_channels: int = 0,
                  mlp: Sequence[int] = (), group_all: bool = False,
                  dtype=None, f32_train_guard: bool = False,
-                 knn: bool = False):
+                 knn: bool = False, project_first: bool = True):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.knn = knn
         self.mlp_widths = tuple(mlp)
         self.group_all = group_all
+        self.project_first = project_first
         self.dtype = dtype
         self.f32_train_guard = f32_train_guard
         c_in = 3 + in_channels
-        if group_all:
+        if group_all or not project_first:
             self.mlp = SharedMLP(c_in, self.mlp_widths, dtype=dtype)
             return
         c1 = self.mlp_widths[0]
@@ -262,7 +311,7 @@ class SetAbstraction(nn.Module):
         self.init_(None)
 
     def init_(self, g):
-        if self.group_all:
+        if self.group_all or not self.project_first:
             return
         lecun_normal_(self.proj_kernel, self.proj_kernel.shape[0], g)
         with torch.no_grad():
@@ -280,6 +329,11 @@ class SetAbstraction(nn.Module):
                                          and self.dtype == torch.bfloat16)
             new_xyz, grouped = ops.sample_and_group_all(xyz, feats)
             return new_xyz, self.mlp(grouped, bn_momentum, f32=f32).amax(dim=2)
+        if not self.project_first:
+            new_xyz, grouped = ops.sample_and_group(
+                self.npoint, self.radius, self.nsample, xyz, feats,
+                fps_start_idx=_fps_start(train, xyz, fps_generator))
+            return new_xyz, self.mlp(grouped, bn_momentum).amax(dim=2)
 
         dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
         ps = _point_shard(train, xyz.shape[1], (self.mlp_widths,),
@@ -290,7 +344,7 @@ class SetAbstraction(nn.Module):
             xyz, new_xyz, _concat_points(xyz, feats), self.proj_kernel,
             self.proj_bias, self.proj_bn, self.mlp_rest, self.radius,
             self.nsample, self.mlp_widths, self.dtype, dt, train,
-            bn_momentum, self.knn, ps)
+            bn_momentum, self.knn, ps, dbg=True)
         return new_xyz, out
 
 
@@ -305,12 +359,20 @@ class SetAbstractionMsg(nn.Module):
     the tail of ``SetAbstraction`` (``_scale_tail``): the fused SA kernel,
     one launch a scale, in bf16 serving; in training the ball query, the
     gather, BN and the rest of the MLP, recentred in f32 under bf16
-    training. ``f32_train_guard`` and ``fps_generator`` as there."""
+    training. ``f32_train_guard`` and ``fps_generator`` as there.
+
+    ``project_first=False`` (``pointnet2.py:401-411``) holds one ``mlp_{i}``
+    a scale over [3+D]: after the FPS, each scale's ball query, the gathered
+    [xyz - centroid, features] rows (f32 xyz with bf16 features promotes to
+    f32) and its whole MLP with no dtype, so the scales compute in f32 even
+    in a bf16 block, as JAX's ``SharedMLP(mlp, name=f"mlp_{i}")`` does; it
+    never shards nor takes a fused kernel."""
 
     def __init__(self, npoint: int, radius_list: Sequence[float],
                  nsample_list: Sequence[int],
                  mlp_list: Sequence[Sequence[int]], in_channels: int = 0,
-                 dtype=None, f32_train_guard: bool = False):
+                 dtype=None, f32_train_guard: bool = False,
+                 project_first: bool = True):
         super().__init__()
         self.npoint = npoint
         self.radius_list = tuple(radius_list)
@@ -318,7 +380,12 @@ class SetAbstractionMsg(nn.Module):
         self.mlp_list = tuple(tuple(m) for m in mlp_list)
         self.dtype = dtype
         self.f32_train_guard = f32_train_guard
+        self.project_first = project_first
         c_in = 3 + in_channels
+        if not project_first:
+            for i, mlp in enumerate(self.mlp_list):
+                self.add_module(f"mlp_{i}", SharedMLP(c_in, mlp))
+            return
         for i, mlp in enumerate(self.mlp_list):
             c1 = mlp[0]
             self.register_parameter(f"proj_kernel_{i}",
@@ -332,6 +399,8 @@ class SetAbstractionMsg(nn.Module):
         self.init_(None)
 
     def init_(self, g):
+        if not self.project_first:
+            return
         for i in range(len(self.mlp_list)):
             k = getattr(self, f"proj_kernel_{i}")
             lecun_normal_(k, k.shape[0], g)
@@ -344,6 +413,20 @@ class SetAbstractionMsg(nn.Module):
         """xyz [B,N,3] f32, feats [B,N,D] or None -> (new_xyz [B,S,3],
         [B,S,sum of the scales' last widths])."""
         train = self.training
+        if not self.project_first:
+            fps_idx = _fps(xyz, self.npoint, train, fps_generator, None)
+            new_xyz = ops.index_points(xyz, fps_idx)
+            outs = []
+            for i, (radius, nsample) in enumerate(zip(self.radius_list,
+                                                      self.nsample_list)):
+                idx = ops.query_ball_point(radius, nsample, xyz, new_xyz)
+                grouped = ops.index_points(xyz, idx) - new_xyz[:, :, None, :]
+                if feats is not None:
+                    grouped = _concat_points(grouped,
+                                             ops.index_points(feats, idx))
+                outs.append(getattr(self, f"mlp_{i}")(
+                    grouped, bn_momentum).amax(dim=2))
+            return new_xyz, torch.cat(outs, dim=-1)
         dt = guarded_train_dtype(self.dtype, train, self.f32_train_guard)
         ps = _point_shard(train, xyz.shape[1], self.mlp_list)
         fps_idx = _fps(xyz, self.npoint, train, fps_generator, ps)
@@ -362,18 +445,36 @@ class SetAbstractionMsg(nn.Module):
 class FeaturePropagation(nn.Module):
     """FP decoder block: 3-NN inverse-distance upsample + skip + MLP.
 
-    Project-first: the interpolation is linear, so the first layer runs on
-    the M sparse points, ``interp(f2 @ W_f2) + f1 @ W_skip + b``.
-    ``skip_channels`` counts the dense-side features (0 for none),
+    Project-first (the default): the interpolation is linear, so the first
+    layer runs on the M sparse points, ``interp(f2 @ W_f2) + f1 @ W_skip +
+    b``. ``skip_channels`` counts the dense-side features (0 for none),
     ``sparse_channels`` the sparse-side ones. Parameters follow the flax
     tree: ``proj_kernel`` [skip + sparse, C1] with rows [skip; interpolated],
-    ``proj_bias``, ``proj_bn`` and ``mlp_rest``."""
+    ``proj_bias``, ``proj_bn`` and ``mlp_rest``. With no dtype the sparse
+    features are promoted with the kernel (a bf16 ``feats2`` under a forced
+    ``fp`` of ``MM3D_BF16_DEBUG`` gives f32), as ``feats2 @ k`` does in JAX.
+
+    ``project_first=False`` (``pointnet2.py:442-454``) holds one ``mlp``
+    over [skip + sparse]: the sparse features interpolated (M == 1
+    broadcasts them; else the three_nn kernel, the inverse-distance weights
+    and the three_interpolate kernel), the skip features cast to their dtype
+    and put first, then the whole MLP in the block's dtype; no fused kernel,
+    no point sharding. JAX interpolates with ``_three_interpolate_jax``,
+    whose bf16 features times f32 weights promote to f32, so the port
+    interpolates ``feats2`` promoted to f32: JAX's products and its f32
+    result (a bf16 kernel call would round the weights and the result to
+    bf16); autograd casts the gradient back."""
 
     def __init__(self, skip_channels: int, sparse_channels: int,
-                 mlp: Sequence[int], dtype=None):
+                 mlp: Sequence[int], dtype=None, project_first: bool = True):
         super().__init__()
         self.mlp_widths = tuple(mlp)
         self.dtype = dtype
+        self.project_first = project_first
+        if not project_first:
+            self.mlp = SharedMLP(skip_channels + sparse_channels,
+                                 self.mlp_widths, dtype=dtype)
+            return
         c1 = self.mlp_widths[0]
         self.proj_kernel = nn.Parameter(
             torch.empty(skip_channels + sparse_channels, c1))
@@ -384,6 +485,8 @@ class FeaturePropagation(nn.Module):
         self.init_(None)
 
     def init_(self, g):
+        if not self.project_first:
+            return
         lecun_normal_(self.proj_kernel, self.proj_kernel.shape[0], g)
         with torch.no_grad():
             self.proj_bias.zero_()
@@ -395,12 +498,27 @@ class FeaturePropagation(nn.Module):
         feats1 [B,N,D1] or None, feats2 [B,M,D2] -> [B,N,C_last]."""
         B, N, _ = xyz1.shape
         M = xyz2.shape[1]
+        if not self.project_first:
+            if M == 1:
+                h = feats2.expand(B, N, feats2.shape[-1])
+            else:
+                dists, idx = ops.three_nn(xyz1, xyz2)
+                weight = ops.interpolation_weights(dists)
+                h = ops.three_interpolate(
+                    feats2.to(torch.promote_types(feats2.dtype,
+                                                  weight.dtype)),
+                    idx, weight)
+            if feats1 is not None:
+                h = torch.cat([feats1.to(h.dtype), h], dim=-1)
+            return self.mlp(h, bn_momentum)
         c1 = self.mlp_widths[0]
         c2 = feats2.shape[-1]
         k2, bias = self.proj_kernel, self.proj_bias
         if self.dtype is not None:
             feats2, k2 = feats2.to(self.dtype), k2.to(self.dtype)
             bias = bias.to(self.dtype)
+        else:
+            feats2 = feats2.to(torch.promote_types(feats2.dtype, k2.dtype))
         # rows of W0: [skip channels; interpolated channels]
         k_skip, k_interp = k2[:-c2], k2[-c2:]
         pre = torch.matmul(feats2, k_interp)  # [B,M,C1], on the sparse set
@@ -451,25 +569,31 @@ def classification_head(model: nn.Module, h: torch.Tensor,
 
 class PointNet2ClsSSG(nn.Module):
     """Config 2 (BASELINE.json:8): PointNet++ SSG classification; with
-    ``knn=True`` the kNN-grouping variant (``pointnet2_cls_knn``)."""
+    ``knn=True`` the kNN-grouping variant (``pointnet2_cls_knn``).
+
+    ``MM3D_BF16_DEBUG``'s ``sa``, ``sa3`` and ``head`` (``pointnet2.py:
+    531-553``) are read when the model is built: they fix its blocks'
+    dtypes (flax reads them each time the module is traced)."""
 
     def __init__(self, num_class: int = 40, normal_channel: bool = False,
                  knn: bool = False, dtype=None):
         super().__init__()
         self.normal_channel = normal_channel
+        sa_dt, hd_dt = _dbg_dtype("sa", dtype), _dbg_dtype("head", dtype)
         self.sa1 = SetAbstraction(512, 0.2, 32, 3 if normal_channel else 0,
-                                  (64, 64, 128), dtype=dtype, knn=knn)
+                                  (64, 64, 128), dtype=sa_dt, knn=knn)
         self.sa2 = SetAbstraction(128, 0.4, 64, 128, (128, 128, 256),
-                                  dtype=dtype, knn=knn)
+                                  dtype=sa_dt, knn=knn)
         self.sa3 = SetAbstraction(in_channels=256, mlp=(256, 512, 1024),
-                                  group_all=True, dtype=dtype)
-        self.fc1 = Dense(1024, 512, dtype)
-        self.bn1 = BatchNorm(512, dtype=dtype)
+                                  group_all=True,
+                                  dtype=_dbg_dtype("sa3", sa_dt))
+        self.fc1 = Dense(1024, 512, hd_dt)
+        self.bn1 = BatchNorm(512, dtype=hd_dt)
         self.drop1 = Dropout(0.4)
-        self.fc2 = Dense(512, 256, dtype)
-        self.bn2 = BatchNorm(256, dtype=dtype)
+        self.fc2 = Dense(512, 256, hd_dt)
+        self.bn2 = BatchNorm(256, dtype=hd_dt)
         self.drop2 = Dropout(0.4)
-        self.fc3 = Dense(256, num_class, dtype)
+        self.fc3 = Dense(256, num_class, hd_dt)
 
     def forward(self, points, bn_momentum: float = 0.1,
                 deterministic: Optional[bool] = None,
@@ -630,20 +754,23 @@ class _SemSeg(nn.Module):
     the per-point head ``head_mlp`` (128), dropout 0.5 (``drop``) and
     ``head_out``, and the f32 log-softmax. ``widths`` are the SA blocks'
     output channels; each FP block's skip and sparse channels follow from
-    them."""
+    them. ``fp_dtype`` and ``head_dtype`` are the FP blocks' and the head's
+    dtypes (``dtype`` but under ``MM3D_BF16_DEBUG``)."""
 
-    def __init__(self, sa1, sa2, sa3, sa4, widths, num_class: int, dtype):
+    def __init__(self, sa1, sa2, sa3, sa4, widths, num_class: int, dtype,
+                 fp_dtype, head_dtype):
         super().__init__()
         self.dtype = dtype
         self.sa1, self.sa2, self.sa3, self.sa4 = sa1, sa2, sa3, sa4
         w1, w2, w3, w4 = widths
-        self.fp4 = FeaturePropagation(w3, w4, (256, 256), dtype=dtype)
-        self.fp3 = FeaturePropagation(w2, 256, (256, 256), dtype=dtype)
-        self.fp2 = FeaturePropagation(w1, 256, (256, 128), dtype=dtype)
-        self.fp1 = FeaturePropagation(0, 128, (128, 128, 128), dtype=dtype)
-        self.head_mlp = SharedMLP(128, (128,), dtype=dtype)
+        self.fp4 = FeaturePropagation(w3, w4, (256, 256), dtype=fp_dtype)
+        self.fp3 = FeaturePropagation(w2, 256, (256, 256), dtype=fp_dtype)
+        self.fp2 = FeaturePropagation(w1, 256, (256, 128), dtype=fp_dtype)
+        self.fp1 = FeaturePropagation(0, 128, (128, 128, 128),
+                                      dtype=fp_dtype)
+        self.head_mlp = SharedMLP(128, (128,), dtype=head_dtype)
         self.drop = Dropout(0.5)
-        self.head_out = Dense(128, num_class, dtype)
+        self.head_out = Dense(128, num_class, head_dtype)
 
     def forward(self, points: torch.Tensor, bn_momentum: float = 0.1,
                 deterministic: Optional[bool] = None,
@@ -668,16 +795,26 @@ class _SemSeg(nn.Module):
 
 
 class PointNet2SemSeg(_SemSeg):
-    """``pointnet2_sem_seg``: the SSG trunk (``pointnet2.py:681-721``)."""
+    """``pointnet2_sem_seg``: the SSG trunk (``pointnet2.py:681-721``).
+
+    ``MM3D_BF16_DEBUG``'s ``sa``, ``sa1``-``sa4``, ``fp`` and ``head``
+    (``pointnet2.py:691-720``) are read when the model is built, as in
+    ``PointNet2ClsSSG``."""
 
     def __init__(self, num_class: int = 13, dtype=None):
+        sa_dt = _dbg_dtype("sa", dtype)
+
+        def sa(i):
+            return _dbg_dtype(f"sa{i}", sa_dt)
+
         super().__init__(
-            SetAbstraction(1024, 0.1, 32, 9, (32, 32, 64), dtype=dtype,
+            SetAbstraction(1024, 0.1, 32, 9, (32, 32, 64), dtype=sa(1),
                            f32_train_guard=True),
-            SetAbstraction(256, 0.2, 32, 64, (64, 64, 128), dtype=dtype),
-            SetAbstraction(64, 0.4, 32, 128, (128, 128, 256), dtype=dtype),
-            SetAbstraction(16, 0.8, 32, 256, (256, 256, 512), dtype=dtype),
-            (64, 128, 256, 512), num_class, dtype)
+            SetAbstraction(256, 0.2, 32, 64, (64, 64, 128), dtype=sa(2)),
+            SetAbstraction(64, 0.4, 32, 128, (128, 128, 256), dtype=sa(3)),
+            SetAbstraction(16, 0.8, 32, 256, (256, 256, 512), dtype=sa(4)),
+            (64, 128, 256, 512), num_class, dtype, _dbg_dtype("fp", dtype),
+            _dbg_dtype("head", dtype))
 
 
 class PointNet2SemSegMSG(_SemSeg):
@@ -698,4 +835,4 @@ class PointNet2SemSegMSG(_SemSeg):
             SetAbstractionMsg(16, (0.4, 0.8), (16, 32),
                               ((256, 256, 512), (256, 384, 512)), 512,
                               dtype=dtype),
-            (96, 256, 512, 1024), num_class, dtype)
+            (96, 256, 512, 1024), num_class, dtype, dtype, dtype)
