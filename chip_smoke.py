@@ -19,14 +19,19 @@ that goes wrong:
    rounds, K = 128, every point a hit, d2 == r2 exactly, a ragged N, a
    cloud too large for shared memory and rows too long for it), the fused
    SA tail (SA1, SA2 and zero-hit
-   centroids), the given-index fused SA tail (SA1 and SA2 over the indices
+   centroids; in f32, the CUDA-core kernel, also raced at SA1 and SA2
+   against fp32 serving's unfused tail on the same operands: the
+   ball-query kernel, PyTorch's gather, the dense layers and the max), the
+   given-index fused SA tail (SA1 and SA2 over the indices
    of knn_point, plus a row of repeated indices at K=48), both forms at the
    other widths the JAX models route to the fused tail (config 3's
    (128,196,256) at K=128, the segmentation models' sa4 blocks, whose
-   weights stream through shared memory, and (16,16,32) at K=16; bf16, and
-   f32 where its plan fits), a bf16 width only the loop kernel holds
+   weights stream through shared memory, and (16,16,32) at K=16; bf16 and
+   f32), a bf16 width only the loop kernel holds
    ((32,640,64)), the ball-query form at K=256 and K=200 (and K=256 at
-   (64,128,512), weights streamed), the gather backward, the fused
+   (64,128,512), weights streamed; bf16 and f32), the f32 launcher's
+   refusal of a plan whose bytes disagree with its layout, the gather
+   backward, the fused
    FP tail (fusion_sem_seg's FP2 and FP1, plus tie cases) and the bilinear
    image sampling within the stated tolerances (the gather backward also
    bit-identical across two launches and bit for bit equal to its twin run
@@ -235,10 +240,17 @@ that goes wrong:
    variable set before each model is built and restored after:
    pointnet2_cls_ssg bf16 at B=128 under ``sa,head`` equal to the fp32
    model (1e-6) with fp32 serving's launches, and under ``sa_bn`` the
-   fused SA kernel twice in its f32 form (the loop kernel); pointnet2_sem_seg
-   bf16 at B=16 x 4,096 under ``fp``, the fused FP kernel four times in its
-   f32 form; kernel vs plain path 1e-4 and argmax vs fp32 >= 0.95 under
-   both; ms a forward beside the unforced bf16 model's;
+   fused SA kernel twice in its f32 form (``sa_f32_kernel``);
+   pointnet2_sem_seg bf16 at B=16 x 4,096 under ``fp``, the fused FP kernel
+   four times in its f32 form, and under ``sa_bn`` the fused SA kernel four
+   times in its f32 form (sa4's (256,256,512) included); kernel vs plain
+   path 1e-4 and argmax vs fp32 >= 0.95 under each; ms a forward beside the
+   unforced bf16 model's. 8c: fp32 serving with the kernels forced
+   (``use_impl("cuda")``): pointnet2_sem_seg and pointnet2_sem_seg_msg at
+   B=16 x 4,096 (every SA block and scale on the f32 form, the sa4 blocks
+   included) and pointnet2_cls_knn at B=128 (the given-index f32 form),
+   log-probs within 1e-4 of the plain path, the launches a forward, ms a
+   forward beside unforced fp32 serving's;
 9. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -442,6 +454,18 @@ def expect(cuda_kernels, **nonzero):
             for k in cuda_kernels.KERNELS}
 
 
+# the f32 form of the fused SA kernel (sa_f32_kernel), counted apart: the
+# wrappers' f32_launches, keyed as the kernels line names it
+F32_FORMS = {"fused_sa_f32": "fused_sa", "fused_sa_idx_f32": "fused_sa_idx"}
+
+
+def f32_counts(cuda_kernels):
+    """The f32 form's launches of each fused SA wrapper since the counts
+    were last reset."""
+    return {k: getattr(cuda_kernels, w).f32_launches
+            for k, w in F32_FORMS.items()}
+
+
 # ------------------------------------------------------------ phases
 
 
@@ -620,11 +644,22 @@ def ball_query_entry(torch, ops, geometry, label, radius, K, x, cents,
     return entry, got
 
 
+def unfused_tail(ops, radius, K, x, cents, pre, cbias, w1, b1, w2, b2):
+    """fp32 serving's unfused SA tail on the fused kernel's operands: the
+    ball-query kernel, then PyTorch's gather, the two dense layers (cuBLAS,
+    TF32 off) and the max over K."""
+    idx = ops.query_ball_point(radius, K, x, cents)
+    return ops.fused_sa_idx_torch(K, idx, pre, cbias, w1, b1, w2, b2)
+
+
 def fused_sa_entry(torch, ops, geometry, label, radius, K, x, cents, base,
-                   dtname, timed):
+                   dtname, timed, race=False):
     """The ball-query fused SA tail on the card against its plain twin
     (``sa_check``) over ``base`` (``sa_operands``) cast to ``dtname``;
-    ``timed``: as ``fps_entry`` -> the entry of its row."""
+    ``timed``: as ``fps_entry``; ``race``: also fp32 serving's unfused
+    tail on the same operands (``unfused_tail``), held to the kernel within
+    the f32 tolerance and timed in the same process -> the entry of its
+    row."""
     dt = getattr(torch, dtname)
     B, N, _ = x.shape
     S = cents.shape[1]
@@ -646,6 +681,16 @@ def fused_sa_entry(torch, ops, geometry, label, radius, K, x, cents, base,
             (B * N + B * S) * 12 + (B * N * C1 + B * S * C1) * es
             + (C1 * C2 + C2 + C2 * C3 + C3) * es + B * S * C3 * es,
             flops))
+    if race:
+        tail = unfused_tail(ops, *args)
+        worst = float(((tail - ops.fused_sa(*args)).abs()
+                       - F32_RTOL * tail.abs()).max())
+        check(worst <= F32_ATOL, f"unfused tail {label}: |d| - rtol|ref| "
+                                 f"max {worst}")
+        entry.update(times(torch, lambda: unfused_tail(ops, *args), 20,
+                           "unfused_tail_"))
+        entry["unfused_tail_over_kernel"] = (entry["unfused_tail_ms"]
+                                             / entry["ms"])
     return entry
 
 
@@ -942,7 +987,7 @@ def kernel_checks(torch, ops, geometry, dev):
         for dtname in ("bfloat16", "float32"):
             record("fused_sa", f"{label} {dtname}", fused_sa_entry(
                 torch, ops, geometry, label, radius, K, x, cents, base,
-                dtname, timed))
+                dtname, timed, race=timed and dtname == "float32"))
 
     # --- fused SA tail over given indices: SA1 and SA2 shapes with the kNN
     # indices of knn_point on the card, bf16 and fp32; then a row of one
@@ -984,26 +1029,28 @@ def kernel_checks(torch, ops, geometry, dev):
             record("fused_sa_idx", f"{label} {dtname}", entry)
 
     # --- the ball-query form past 128 neighbours (untimed; the JAX kernel
-    # takes any K there): one centroid a tile, walked in blocks of 128 rows;
-    # at (64,128,512) the weights stream, once for each block (bf16: the f32
-    # plan does not fit)
+    # takes any K there): one centroid a tile, walked in blocks of 128 rows
+    # (bf16: one tile of 256 rows; f32: two blocks of 128, their maxima
+    # merged); at (64,128,512) the weights stream, once for each block
     g = np.random.RandomState(8)
-    for label, B, N, S, radius, K, (C1, C2, C3), f32, resident in (
-            ("K=256 (64,64,128)", 8, 1024, 64, 0.6, 256, (64, 64, 128), True,
+    for label, B, N, S, radius, K, (C1, C2, C3), resident in (
+            ("K=256 (64,64,128)", 8, 1024, 64, 0.6, 256, (64, 64, 128),
              True),
-            ("K=200 (64,64,128)", 8, 512, 64, 0.8, 200, (64, 64, 128), True,
-             True),
+            ("K=200 (64,64,128)", 8, 512, 64, 0.8, 200, (64, 64, 128), True),
             ("K=256 streamed (64,128,512)", 8, 1024, 64, 0.6, 256,
-             (64, 128, 512), False, False)):
+             (64, 128, 512), False)):
         plan = cuda_kernels.sa_plan(C1, C2, C3, K, S, torch.bfloat16, N)
         check((plan.rows, plan.resident) == (256, resident),
               f"fused SA {label}: plan {plan}")
+        plan = cuda_kernels.sa_plan(C1, C2, C3, K, S, torch.float32, N)
+        check((plan.rows, plan.St, plan.resident) == (128, 1, resident),
+              f"fused SA {label}: f32 plan {plan}")
         x = torch.from_numpy(unit_sphere_clouds(g, B, N)).to(dev)
         with ops.use_impl("torch"):
             cents = geometry.index_points(x, geometry.fps_torch(x, S))
         base = sa_operands(torch, g, dev, B, N, S, C1, C2, C3)
         for dtname, dt in (("bfloat16", torch.bfloat16),
-                           ("float32", torch.float32))[:2 if f32 else 1]:
+                           ("float32", torch.float32)):
             w = [a.to(dt) for a in base]
             record("fused_sa", f"{label} {dtname}", sa_check(
                 torch, ops, f"fused SA {label} {dtname}",
@@ -1015,19 +1062,23 @@ def kernel_checks(torch, ops, geometry, dev):
     # centroid counts: config 3's sa2 (128,196,256) at K=128, St=1 (C2 not a
     # multiple of 16); the sa4 blocks of PointNet2SemSeg (256,256,512) and
     # PointNet2SemSegMSG (256,384,512) at K=32, whose weights stream through
-    # shared memory; PointNet2SemSegMSG's sa1 (16,16,32) at K=16. bf16, the
-    # serving dtype, always; f32 where its plan fits shared memory (the sa4
-    # widths' is refused before any launch, tests/test_torch_fused_sa.py).
-    # Then a width no model routes, (32,640,64), whose bf16 tile the wgmma
-    # kernel cannot hold: the loop kernel takes it (producers 0)
+    # shared memory (f32: blocks of 64 rows, one A stage); PointNet2SemSegMSG's
+    # sa1 (16,16,32) at K=16. bf16, the serving dtype, and f32 (the f32
+    # form's plan holds every routed width). Then a width no model routes,
+    # (32,640,64), whose bf16 tile the wgmma kernel cannot hold: the loop
+    # kernel takes it (producers 0), bf16 only; and widths no model routes
+    # that are no whole number of 16-byte moves, (18,302,514) at K=20,
+    # whose f32 weights stream through 4-byte copies
     g = np.random.RandomState(7)
     for label, B, N, S, radius, K, (C1, C2, C3), f32 in (
             ("config 3 sa2 (128,196,256) K=128", 16, 512, 128, 0.8, 128,
              (128, 196, 256), True),
+            ("odd widths, streamed (18,302,514) K=20", 4, 300, 37, 0.5, 20,
+             (18, 302, 514), True),
             ("semseg sa4 (256,256,512) K=32", 16, 64, 16, 0.8, 32,
-             (256, 256, 512), False),
+             (256, 256, 512), True),
             ("semseg MSG sa4 (256,384,512) K=32", 16, 64, 16, 0.8, 32,
-             (256, 384, 512), False),
+             (256, 384, 512), True),
             ("semseg MSG sa1 (16,16,32) K=16", 8, 4096, 1024, 0.05, 16,
              (16, 16, 32), True),
             ("bf16 loop kernel (32,640,64) K=32", 8, 1024, 256, 0.2, 32,
@@ -1050,6 +1101,27 @@ def kernel_checks(torch, ops, geometry, dev):
             record("fused_sa_idx", f"{label} {dtname}", sa_check(
                 torch, ops, f"fused SA idx {label} {dtname}",
                 lambda: ops.fused_sa_idx(K, idx, *w), (B, S, C3), dt))
+
+    # --- the launcher recomputes the f32 kernel's layout (F32Layout) and
+    # refuses a plan whose bytes disagree: cudaErrorInvalidValue, no launch
+    x, cents = xyz1[:2], c1[:2]
+    w = sa_operands(torch, g, dev, 2, NPOINT, 512, 64, 64, 128)
+    plan = cuda_kernels.sa_plan(64, 64, 128, 32, 512, torch.float32, NPOINT)
+    out = torch.empty(2, 512, 128, device=dev)
+    refused = ""
+    try:
+        cuda_kernels._launch(
+            "mm3d_fused_sa", 0, *map(cuda_kernels._ptr, (x, cents, *w, out)),
+            2, NPOINT, 512, 32, 64, 64, 128, plan.St, plan.rows,
+            int(plan.resident), int(plan.xyz_smem), plan.producers,
+            plan.stages, plan.smem + 128, cuda_kernels._r2(0.2),
+            cuda_kernels._stream(x))
+    except RuntimeError as e:
+        refused = str(e)
+    check("invalid argument" in refused,
+          f"f32 fused SA: a plan 128 bytes off its layout was not refused "
+          f"({refused!r})")
+    print(f"f32 fused SA, plan bytes + 128: refused ({refused})", flush=True)
 
     # --- gather backward: the train path's SA1 and SA2 shapes at B=24 with
     # the ball query's own indices, in f32 and bf16, and random indices
@@ -4349,19 +4421,22 @@ def bf16_knob(torch, ops, cuda_kernels, dev):
     under ``sa,head`` the log-probs equal the fp32 model's (1e-6; bit for
     bit expected) with fp32 serving's launches; under ``sa_bn`` the fused
     SA kernel twice in its f32 form, kernel vs plain path 1e-4, argmax vs
-    fp32 >= 0.95. pointnet2_sem_seg B=16 x 4,096 under ``fp``: the fused FP
-    kernel four times in its f32 form, the same two gates per point.
-    Recorded: ms a forward beside the unforced bf16 model's."""
+    fp32 >= 0.95. pointnet2_sem_seg B=16 x 4,096: under ``fp`` the fused FP
+    kernel four times in its f32 form, under ``sa_bn`` the fused SA kernel
+    four times in its f32 form (sa4's (256,256,512) included), the same two
+    gates per point. Recorded: ms a forward beside the unforced bf16
+    model's, the forced kernel's device ms a forward."""
     from mm3d_tpu_torch.data.synthetic import scene_request
     from mm3d_tpu_torch.models import get_model, init_params
     from mm3d_tpu_torch.training import make_predictor
     from mm3d_tpu_torch.utils.profiling import nontrivial_bn
 
-    out = {"launches": expect(cuda_kernels)}
+    out = {"launches": expect(cuda_kernels),
+           "f32_launches": dict.fromkeys(F32_FORMS, 0)}
 
-    def run(pred, x, symbol):
-        """One forward on the kernel path: log-probs, launches, the forms
-        ``symbol`` launched in."""
+    def run(pred, x):
+        """One forward on the kernel path: log-probs, launches, the
+        launches' symbols and bf16 flags."""
         cuda_kernels.reset_launches()
         with launch_flags(cuda_kernels) as fl:
             lp = pred(x)
@@ -4369,37 +4444,42 @@ def bf16_knob(torch, ops, cuda_kernels, dev):
         counts = launch_counts(cuda_kernels)
         for k, v in counts.items():
             out["launches"][k] += v
-        return lp, counts, fl.forms(symbol)
+        for k, v in f32_counts(cuda_kernels).items():
+            out["f32_launches"][k] += v
+        return lp, counts, fl
 
     cases = (("pointnet2_cls_ssg", NUM_CLASS, torch.from_numpy(
         unit_sphere_clouds(np.random.RandomState(80), BATCH, NPOINT)).to(dev),
-        "mm3d_fused_sa", ("sa,head", "sa_bn")),
+        (("sa,head", "mm3d_fused_sa"), ("sa_bn", "mm3d_fused_sa"))),
              ("pointnet2_sem_seg", SEG_CLASSES, torch.from_numpy(
                  scene_request(SCENE_BATCH, SCENE_NPOINT, seed=81)[0]).to(
-                     dev), "mm3d_fused_fp", ("fp",)))
-    for name, ncls, x, symbol, knobs in cases:
+                     dev), (("fp", "mm3d_fused_fp"),
+                            ("sa_bn", "mm3d_fused_sa"))))
+    for name, ncls, x, knobs in cases:
         model = init_params(get_model(name).builder(num_class=ncls), seed=0)
         nontrivial_bn(model, seed=1)
         state = model.state_dict()
         p32 = make_predictor(name, state, device=dev, num_class=ncls)
         p16 = make_predictor(name, state, dtype=torch.bfloat16, device=dev,
                              num_class=ncls)
-        lp32, c32, _ = run(p32, x, symbol)
-        lp16, c16, f16 = run(p16, x, symbol)
+        lp32, c32, _ = run(p32, x)
+        lp16, c16, fl16 = run(p16, x)
         res = {"fp32_launches": c32, "bf16_launches": c16,
-               "bf16_forms": sorted(f16),
+               "bf16_forms": {sym: sorted(fl16.forms(sym))
+                              for _, sym in knobs},
                "forward_ms": {"float32": cuda_ms(torch, lambda: p32(x), 10),
                               "bfloat16": cuda_ms(torch, lambda: p16(x),
                                                   10)}}
-        for value in knobs:
+        for value, symbol in knobs:
             with knob_env(value):
                 pk = make_predictor(name, state, dtype=torch.bfloat16,
                                     device=dev, num_class=ncls)
-                lp, counts, forms = run(pk, x, symbol)
+                lp, counts, fl = run(pk, x)
+                forms = fl.forms(symbol)
                 with ops.use_impl("torch"):
                     plain = pk(x)
                 ms = cuda_ms(torch, lambda: pk(x), 10)
-                kernel = ("sa_loop_kernel" if symbol == "mm3d_fused_sa"
+                kernel = ("sa_f32_kernel" if symbol == "mm3d_fused_sa"
                           else "fused_fp_kernel")
                 dev_t = times(torch, lambda: pk(x), 5, kernel=kernel)
             check(lp.dtype == torch.float32 and bool(torch.isfinite(lp).all()),
@@ -4424,7 +4504,8 @@ def bf16_knob(torch, ops, cuda_kernels, dev):
                 check(counts == c16 and counts[want] > 0 and forms == {0},
                       f"8b {name} {value}: launches {counts} forms {forms}, "
                       f"want {c16} in f32")
-                check(f16 == {1}, f"8b {name}: unforced forms {f16}")
+                check(fl16.forms(symbol) == {1},
+                      f"8b {name}: unforced forms {fl16.forms(symbol)}")
                 check(d_plain <= 1e-4, f"8b {name} {value} kernel vs plain "
                                        f"{d_plain}")
                 check(agree >= 0.95, f"8b {name} {value} argmax vs fp32 "
@@ -4442,53 +4523,135 @@ def bf16_knob(torch, ops, cuda_kernels, dev):
     return out
 
 
+def forced_f32(torch, ops, cuda_kernels, dev):
+    """Phase 8c: fp32 serving with the kernels forced (``use_impl("cuda")``,
+    as JAX's 'pallas' mode): every SA block of pointnet2_sem_seg and
+    pointnet2_sem_seg_msg (B=16 x 4,096, sa4's 256- and 384-wide blocks
+    included) on the fused SA kernel's f32 form, and pointnet2_cls_knn's
+    (B=128 x 1,024) on its given-index f32 form. The log-probs within 1e-4
+    of the plain path (``use_impl("torch")``: unfused, no kernel), finite;
+    the launches a forward (the fused SA kernel once a block or scale, all
+    f32; no ball query); ms a forward beside unforced fp32 serving's, and
+    the f32 kernel's device ms a forward."""
+    from mm3d_tpu_torch.data.synthetic import scene_request
+    from mm3d_tpu_torch.models import get_model, init_params
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils.profiling import nontrivial_bn
+
+    out = {"launches": expect(cuda_kernels),
+           "f32_launches": dict.fromkeys(F32_FORMS, 0)}
+    scene = torch.from_numpy(scene_request(SCENE_BATCH, SCENE_NPOINT,
+                                           seed=82)[0]).to(dev)
+    clouds = torch.from_numpy(unit_sphere_clouds(
+        np.random.RandomState(83), BATCH, NPOINT)).to(dev)
+    cases = (("pointnet2_sem_seg", SEG_CLASSES, scene,
+              {"farthest_point_sample": 4, "fused_sa": 4, "fused_fp": 4}),
+             ("pointnet2_sem_seg_msg", SEG_CLASSES, scene,
+              {"farthest_point_sample": 4, "fused_sa": 8, "fused_fp": 4}),
+             ("pointnet2_cls_knn", NUM_CLASS, clouds,
+              {"farthest_point_sample": 2, "fused_sa_idx": 2}))
+    for name, ncls, x, want in cases:
+        model = init_params(get_model(name).builder(num_class=ncls), seed=0)
+        nontrivial_bn(model, seed=1)
+        pred = make_predictor(name, model.state_dict(), device=dev,
+                              num_class=ncls)
+        with ops.use_impl("torch"):
+            plain = pred(x)
+        cuda_kernels.reset_launches()
+        with ops.use_impl("cuda"):
+            lp = pred(x)
+            torch.cuda.synchronize()
+        counts, f32 = launch_counts(cuda_kernels), f32_counts(cuda_kernels)
+        for k, v in counts.items():
+            out["launches"][k] += v
+        for k, v in f32.items():
+            out["f32_launches"][k] += v
+        d = float((lp - plain).abs().max())
+        fused = {k: counts[w] for k, w in F32_FORMS.items()}
+        check(counts == expect(cuda_kernels, **want) and f32 == fused,
+              f"8c {name}: launches {counts}, f32 {f32}, want {want}")
+        check(bool(torch.isfinite(lp).all()) and d <= 1e-4,
+              f"8c {name}: forced kernels vs plain path max|d| {d}")
+        with ops.use_impl("cuda"):
+            forced_ms = cuda_ms(torch, lambda: pred(x), 10)
+            dev_t = times(torch, lambda: pred(x), 5, kernel="sa_f32_kernel")
+        r = {"launches": counts, "f32_launches": f32,
+             "vs_plain_max_abs": d, "forward_ms": {
+                 "forced": forced_ms,
+                 "unforced": cuda_ms(torch, lambda: pred(x), 10)},
+             "device": dev_t}
+        check(dev_t["kernel_ms"] > 0, f"8c {name}: no sa_f32_kernel")
+        print(f"8c {name} fp32, kernels forced: {r}", flush=True)
+        out[name] = r
+        del pred
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(rows, launches):
     """One entry per kernel, summed over its path's shapes, in the dtype
-    named (fused SA, given-index fused SA and fused FP: bf16 serving;
-    gather backward: the f32
+    named (fused SA, given-index fused SA and fused FP: bf16 serving; their
+    f32 forms, ``fused_sa_f32`` and ``fused_sa_idx_f32``: f32, with the
+    errors of their f32 rows; gather backward: the f32
     train step; bilinear: f32, where grid_sample is the yardstick;
     three_nn: f32; three_interpolate: the f32 train step). ms, plain_ms and
-    library_ms are device times per call (torch.profiler)."""
+    library_ms are device times per call (torch.profiler). ``launches`` is
+    keyed by wrapper, and for the f32 forms by their F32_FORMS names."""
+    # name: (rows, launches key, source, TPU kernel, dtype, f32 errors only)
+    sa = "mm3d_tpu_torch/csrc/fused_sa.cu"
     path = {
-        "fps": ("farthest_point_sample", "mm3d_tpu_torch/csrc/fps.cu",
-                "mm3d_tpu/ops/pallas_kernels.py:174", None),
-        "ball_query": ("query_ball_point", "mm3d_tpu_torch/csrc/ball_query.cu",
-                       "mm3d_tpu/ops/pallas_kernels.py:324", None),
-        "fused_sa": ("fused_sa", "mm3d_tpu_torch/csrc/fused_sa.cu",
-                     "mm3d_tpu/ops/pallas_kernels.py:961", "bfloat16"),
-        "gather_backward": ("gather_backward",
+        "fps": ("fps", "farthest_point_sample", "mm3d_tpu_torch/csrc/fps.cu",
+                "mm3d_tpu/ops/pallas_kernels.py:174", None, False),
+        "ball_query": ("ball_query", "query_ball_point",
+                       "mm3d_tpu_torch/csrc/ball_query.cu",
+                       "mm3d_tpu/ops/pallas_kernels.py:324", None, False),
+        "fused_sa": ("fused_sa", "fused_sa", sa,
+                     "mm3d_tpu/ops/pallas_kernels.py:961", "bfloat16", False),
+        "gather_backward": ("gather_backward", "gather_backward",
                             "mm3d_tpu_torch/csrc/gather_bwd.cu",
-                            "mm3d_tpu/ops/pallas_kernels.py:1704", "float32"),
-        "fused_fp": ("fused_fp", "mm3d_tpu_torch/csrc/fused_fp.cu",
-                     "mm3d_tpu/ops/pallas_kernels.py:1584", "bfloat16"),
-        "bilinear_sample": ("bilinear_sample",
+                            "mm3d_tpu/ops/pallas_kernels.py:1704", "float32",
+                            False),
+        "fused_fp": ("fused_fp", "fused_fp", "mm3d_tpu_torch/csrc/fused_fp.cu",
+                     "mm3d_tpu/ops/pallas_kernels.py:1584", "bfloat16",
+                     False),
+        "bilinear_sample": ("bilinear_sample", "bilinear_sample",
                             "mm3d_tpu_torch/csrc/bilinear.cu",
-                            "mm3d_tpu/ops/pallas_kernels.py:1459", "float32"),
-        "three_nn": ("three_nn", "mm3d_tpu_torch/csrc/three_nn.cu",
-                     "mm3d_tpu/ops/pallas_kernels.py:470", None),
-        "three_interpolate": ("three_interpolate",
+                            "mm3d_tpu/ops/pallas_kernels.py:1459", "float32",
+                            False),
+        "three_nn": ("three_nn", "three_nn", "mm3d_tpu_torch/csrc/three_nn.cu",
+                     "mm3d_tpu/ops/pallas_kernels.py:470", None, False),
+        "three_interpolate": ("three_interpolate", "three_interpolate",
                               "mm3d_tpu_torch/csrc/three_interp.cu",
                               "mm3d_tpu/ops/pallas_kernels.py:1387",
-                              "float32"),
-        "fused_sa_idx": ("fused_sa_idx", "mm3d_tpu_torch/csrc/fused_sa.cu",
-                         "mm3d_tpu/ops/pallas_kernels.py:1214", "bfloat16"),
+                              "float32", False),
+        "fused_sa_idx": ("fused_sa_idx", "fused_sa_idx", sa,
+                         "mm3d_tpu/ops/pallas_kernels.py:1214", "bfloat16",
+                         False),
+        "fused_sa_f32": ("fused_sa", "fused_sa_f32", sa,
+                         "mm3d_tpu/ops/pallas_kernels.py:961", "float32",
+                         True),
+        "fused_sa_idx_f32": ("fused_sa_idx", "fused_sa_idx_f32", sa,
+                             "mm3d_tpu/ops/pallas_kernels.py:1214",
+                             "float32", True),
     }
     out = []
-    for name, (wrapper, src, replaces, dtname) in path.items():
-        timed = [e for e in rows[name] if "ms" in e
+    for name, (key, count, src, replaces, dtname, f32_err) in path.items():
+        timed = [e for e in rows[key] if "ms" in e
                  and (dtname is None or e["dtype"] == dtname)]
+        checked = [e for e in rows[key]
+                   if not f32_err or e["dtype"] == "float32"]
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[wrapper],
-            "max_abs_err": max(e.get("max_abs_err", 0.0) for e in rows[name]),
+            "replaces": replaces, "launches": launches[count],
+            "max_abs_err": max(e.get("max_abs_err", 0.0) for e in checked),
             "ms": sum(e["ms"] for e in timed),
             "plain_ms": sum(e["plain_ms"] for e in timed),
             "bound_ms": sum(e["bound_ms"] for e in timed),
             "bound_by": max(timed, key=lambda e: e["bound_ms"])["bound_by"],
             # one PyTorch call computes the gather backward (index_add_),
             # the sampling (grid_sample) and the 3-NN (cdist + topk); FPS,
-            # ball query, the fused SA tails (both forms), the fused FP tail
-            # and the interpolation have none
+            # ball query, the fused SA tails (both forms, both dtypes), the
+            # fused FP tail and the interpolation have none
             "library_ms": (sum(e["library_ms"] for e in timed)
                            if timed[0].get("library_ms") is not None
                            else None)})
@@ -4604,6 +4767,7 @@ def main():
     mark("7")
     plain = plain_blocks(torch, ops, cuda_kernels, dev)  # 8a
     knob = bf16_knob(torch, ops, cuda_kernels, dev)  # 8b
+    forced = forced_f32(torch, ops, cuda_kernels, dev)  # 8c
     mark("8")
     phase_s = {"build": build_s}
     phase_s.update((k, t - marks[i][1]) for i, (k, t) in enumerate(marks[1:]))
@@ -4614,14 +4778,18 @@ def main():
     # fusion_cls, fusion_sem_seg, pointnet2_cls_knn, pointnet2_part_seg_msg,
     # pointnet_cls and pointnet2_sem_seg (fp32 + bf16), the resumed
     # fusion_cls runs, the four vote steps (bf16 + fp32), the train and
-    # test CLIs, the parallel layer, the plain blocks (forwards and steps)
-    # and bf16 serving under MM3D_BF16_DEBUG
+    # test CLIs, the parallel layer, the plain blocks (forwards and steps),
+    # bf16 serving under MM3D_BF16_DEBUG and fp32 serving with the kernels
+    # forced; the fused SA kernel's f32 form also apart (phases 8b and 8c)
     phases = (served, semseg, *served_pn2.values(), *served_part.values(),
               *served_pn.values(), *served_tops.values(), artifacts, trained,
               trained_seg, trained_knn, trained_part, trained_pn,
-              trained_scene, resumed, voted, cli, parallel, plain, knob)
+              trained_scene, resumed, voted, cli, parallel, plain, knob,
+              forced)
     main_launches = {k: sum(p["launches"][k] for p in phases)
                      for k in served["launches"]}
+    main_launches.update({k: sum(p.get("f32_launches", {}).get(k, 0)
+                                 for p in phases) for k in F32_FORMS})
     kernels = kernels_line(rows, main_launches)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on "
@@ -4645,6 +4813,7 @@ def main():
                    "train_resume": resumed, "vote_eval": voted,
                    "entry_points": cli, "parallel": parallel,
                    "plain_blocks": plain, "bf16_debug": knob,
+                   "forced_f32": forced,
                    "phase_s": phase_s, "kernels": kernels},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,9 +28,9 @@
 //
 // What bounds it on the H100: the two products, 2*K*(C1*C2 + C2*C3)
 // operations per centroid (51.5 and 103 GFLOP at SA1 and SA2, B=128: 0.052
-// and 0.104 ms on the bf16 tensor cores), against ~34 MB of input and output.
-// The weights (24-96 KB in bf16 on the serving paths) are reused by every
-// row.
+// and 0.104 ms on the bf16 tensor cores, 0.77 and 1.54 ms on the f32 CUDA
+// cores), against ~34 MB of input and output. The weights (24-96 KB in bf16
+// on the serving paths) are reused by every row.
 //
 // bf16, sa_ws_kernel: persistent blocks, one a multiprocessor, each walking
 // a contiguous range of the (cloud, centroid tile) pairs. A tile is `rows`
@@ -65,9 +65,42 @@
 // shared-memory bytes) comes from cuda_kernels.sa_plan; the launcher
 // recomputes the layout and refuses a mismatch.
 //
-// sa_loop_kernel, f32 (on no serving path: fp32 serving runs the unfused
-// branch), and bf16 at widths whose tiles the warp-specialised kernel cannot
-// hold in shared memory (a C2 of 512 and more, or K past 128 at wide
+// f32, sa_f32_kernel: the same function on the CUDA cores, f32 FMAs, no
+// TF32 (the f32 form serves strict fp32). Persistent blocks walk the same
+// (cloud, centroid tile) ranges. A block is 256 consumer threads and two
+// producer warpgroups:
+// * the selecting warpgroup takes a tile's neighbours (the ball query, one
+//   warp a centroid, over the cloud's points in shared memory where they
+//   fit; or a copy of the given indices) and its centroids' cbias rows;
+//   the gathering warpgroup then gathers relu(pre + cbias) with 16-byte
+//   loads into an A stage, transposed (channel-major), one or two stages in
+//   a ring handed over by mbarriers: the next tile's selection runs while
+//   this one's rows are gathered, both while the consumers multiply (with
+//   one producer warpgroup doing both in turn, SA1's ball-query form ran
+//   12 % slower than with no selection at all; the second warpgroup took
+//   8 % off: utils/sa_plans.py --src, PERF.md);
+// * the consumers hold a grid of thread tiles over `rows` (128 or 64) rows
+//   and a chunk of 32, 64 or 128 output columns: 16 x 16 tiles of 8 (or 4)
+//   rows x 8, 4 or 2 columns, or, for a chunk narrower than 128 over 128
+//   rows, 32 x 8 tiles of 4 rows x 8 or 4 columns (one A load a k-step in
+//   place of two: 7 % off SA1's given-index form, utils/sa_plans.py --src,
+//   PERF.md), f32 sums in registers (176 a thread, given by the producers
+//   with setmaxnreg); A and weight values read as float4 / float2 from
+//   shared memory at compile-time offsets, where lanes that share a row or
+//   a column read one address (16 FMAs a shared load at 8 x 8). Layer 1: + b1, relu, stored channel-major
+//   into H; layer 2: the max over the thread's rows, then over the 4 lanes
+//   of a 16-row slab by shuffles, the slabs of a centroid combined in a
+//   small shared array, + b2, relu, written: no [rows, C3] staging tile.
+// Weights stay resident where they fit (w1 + w2: 48 KB at SA1); else the
+// consumers stream 32-row panels through two slots with cp.async, one
+// panel ahead of the FMAs. Past `rows` rows a centroid (K > 128, or K > 64
+// at 64-row blocks) is walked in blocks whose maxima are merged in a
+// running row. The plan (rows, St, resident, points in shared memory, A
+// stages, bytes) comes from cuda_kernels.sa_plan; the launcher recomputes
+// F32Layout and refuses a mismatch.
+//
+// sa_loop_kernel, bf16 at widths whose tiles the warp-specialised kernel
+// cannot hold in shared memory (a C2 of 512 and more, or K past 128 at wide
 // layers; on no model's path): the first design's layout, a block per St
 // centroids, selection, gather, then each product in 64-column chunks of
 // CUDA-core FMAs (f32 sums) through an f32 staging tile, with block barriers
@@ -124,11 +157,12 @@ struct SaArgs {
   void* out;             // [B,S,C3]
   int B, N, S, K, C1, C2, C3;
   int St;  // centroids a tile (a block, loop kernel)
-  // producers 0: the loop kernel. stages, the A stages, is the producer
-  // count (tail_args sets it). The stage ring reads it, not `producers` or
-  // the kernel's template argument: with those, ptxas spilled 36-44 bytes
-  // in the two-producer kernels and the given-index form ran 3-7 % slower
-  // at SA1 and SA2 (utils/sa_plans.py --src, PERF.md).
+  // producers 0: the loop kernel. stages: the A stages, the plan's (bf16:
+  // the producer count). The stage ring reads it, not `producers` or the
+  // kernel's template argument: with those, ptxas spilled 36-44 bytes in
+  // the two-producer kernels and the given-index form ran 3-7 % slower at
+  // SA1 and SA2 (utils/sa_plans.py --src, PERF.md). rows: f32, the rows of
+  // a block (an A stage).
   int rows, stages, resident, xyz_smem, producers;
   float r2;
 };
@@ -140,10 +174,10 @@ struct SaArgs {
 constexpr int kNC = 64, kNC2 = 128;
 
 // points a lane a round of the ball-query selection (ball_query.cuh): the
-// warp-specialised kernel's producers walk 4 (no slower than 1 or 2 at SA1
-// and SA2, the two-producer kernels' spill at 8 bytes), the loop kernel 1
-// (4 read 16 % slower at SA2 in f32 there; utils/sample_phases.py --src,
-// PERF.md)
+// producers of the warp-specialised and f32 kernels walk 4 (no slower than
+// 1 or 2 at SA1 and SA2 in bf16, the two-producer kernels' spill at 8
+// bytes), the loop kernel 1 (4 read 16 % slower at SA2 when it also ran
+// f32; utils/sample_phases.py --src, PERF.md)
 constexpr int kSelectU = 4, kLoopSelectU = 1;
 
 __host__ __device__ inline int round_up(int x, int m) {
@@ -904,18 +938,615 @@ __global__ void __launch_bounds__(128 * (2 + NPW), 1) sa_ws_kernel(SaArgs a) {
   }
 }
 
-// ============================================== loop kernel (f32, wide bf16)
+// ============================================== f32: CUDA-core FMA kernel
+
+constexpr int kF32Consumers = 256;  // a 16 x 16 grid of thread tiles
+constexpr int kF32Threads = kF32Consumers + 256;  // + two producer warpgroups
+constexpr int kF32MaxStages = 2;  // A stages
+// k rows a step of the products (a k-loop's unroll; C1 and C2 are padded to
+// it), and a streamed weight panel: two steps (twice as many rows a block
+// barrier: 5 % faster at SA2 than one, utils/sa_plans.py --src, PERF.md)
+constexpr int kF32BK = 16, kF32Panel = 2 * kF32BK;
+
+// output columns a product chunk: the least of 32, 64 and 128 that holds C
+// (a thread then owns 2, 4 or 8 of them)
+__host__ __device__ inline int f32_nc(int C) {
+  return C <= 32 ? 32 : C <= 64 ? 64 : 128;
+}
+
+// Shared-memory layout of sa_f32_kernel, in bytes (cuda_kernels._f32_smem
+// computes the same total): weights (resident w1 then w2, chunk-major: a
+// chunk's [C1p][NC1] (or [K2p][NC2]) after the other, or two streamed
+// panel slots of kF32Panel rows) | A stages (channel-major, [C1p][ldA]) | H
+// ([K2p][ldA]) | b1, b2 | neighbour indices (two tiles) | the tile's cbias
+// rows (two tiles) | slab maxima (two chunks) | the running maxima of a
+// centroid walked in blocks | the cloud's points (ball-query form, where
+// they fit) | mbarriers. Every leading dimension is a compile-time constant
+// of the kernel (an operand's address is a register plus an immediate):
+// the A stages' and H's the block's rows + 4, so that the producer's
+// transposing stores and layer 1's H stores spread over the banks; the
+// weights' the chunk width.
+struct F32Layout {
+  int C1p, K2p, NC1, NC2, N1p, N2p, KR, KRt, ldA, blocks, tileRows;
+  size_t offW2, offA, stageA, offH, offB1, offB2, offIdx, offCb, offPart,
+      offRun, offXyz, offBar, total;
+  __host__ __device__ explicit F32Layout(const SaArgs& a) {
+    C1p = round_up(a.C1, kF32BK);
+    K2p = round_up(a.C2, kF32BK);
+    NC1 = f32_nc(a.C2);
+    NC2 = f32_nc(a.C3);
+    N1p = round_up(a.C2, NC1);
+    N2p = round_up(a.C3, NC2);
+    KR = round_up(a.K, 16);
+    ldA = a.rows + 4;
+    // a centroid past a block's rows is walked in blocks (St = 1)
+    blocks = KR <= a.rows ? 1 : (KR + a.rows - 1) / a.rows;
+    tileRows = blocks * a.rows;
+    KRt = blocks > 1 ? tileRows : KR;  // rows a centroid in the tile
+    size_t o;
+    if (a.resident) {
+      offW2 = align128(static_cast<size_t>(C1p) * N1p * 4);
+      o = offW2 + align128(static_cast<size_t>(K2p) * N2p * 4);
+    } else {
+      offW2 = align128(static_cast<size_t>(kF32Panel) *
+                       (NC1 > NC2 ? NC1 : NC2) * 4);
+      o = 2 * offW2;
+    }
+    offA = o;
+    stageA = align128(static_cast<size_t>(C1p) * ldA * 4);
+    o += a.stages * stageA;
+    offH = o;
+    o += align128(static_cast<size_t>(K2p) * ldA * 4);
+    offB1 = o;
+    o += align128(static_cast<size_t>(N1p) * 4);
+    offB2 = o;
+    o += align128(static_cast<size_t>(N2p) * 4);
+    offIdx = o;
+    o += align128(static_cast<size_t>(2) * tileRows * 4);
+    offCb = o;
+    o += align128(static_cast<size_t>(2) * a.St * C1p * 4);
+    offPart = o;
+    o += align128(static_cast<size_t>(2) * (a.rows / 16) * NC2 * 4);
+    offRun = o;
+    o += blocks > 1 ? align128(static_cast<size_t>(N2p) * 4) : 0;
+    offXyz = o;
+    // (x, y, z, |p|^2) a point, padded to whole rounds of the selection
+    o += a.xyz_smem
+             ? align128(static_cast<size_t>(round_up(a.N, 32 * kSelectU)) * 16)
+             : 0;
+    offBar = o;
+    total = o + 128;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// W [Kin][N] (device memory) into dst as Np / NC chunks of [Kp][NC], one
+// after the other, zero past Kin and N
+__device__ void f32_copy_weights(float* dst, const float* W, int Kin, int N,
+                                 int Kp, int Np, int NC, int tid, int nth) {
+  for (int e = tid; e < Kp * Np; e += nth) {
+    const int k = e / Np, n = e % Np;
+    dst[((n / NC) * Kp + k) * NC + n % NC] =
+        k < Kin && n < N ? __ldg(W + static_cast<size_t>(k) * N + n) : 0.f;
+  }
+}
+
+// The producers, two warpgroups with a role each, handing a tile's
+// neighbours over through two buffers (sel_full / sel_empty mbarriers):
+// * the selecting warpgroup: each tile's neighbours (the ball query, one
+//   warp a centroid, over the cloud's points in shared memory where they
+//   fit; or a copy of the given indices) and its centroids' cbias rows,
+//   into the buffer of the tile's parity;
+// * the gathering warpgroup: each block of rows of a tile into the A
+//   stages, A[c][r] = relu(pre[idx[r]][c] + cbias[s][c]), zero for
+//   C1 <= c < C1p; the buffer handed back after the tile's last block.
+// So the next tile's selection runs while this one's rows are gathered.
+template <bool kGivenIdx>
+__device__ void f32_select(const SaArgs& a, unsigned char* smem) {
+  const F32Layout L(a);
+  const int t = threadIdx.x - kF32Consumers, pw = t >> 5, lane = t & 31;
+  constexpr int kBar = 2;  // named barrier of the selecting warpgroup
+  const int tpc = (a.S + a.St - 1) / a.St;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.offBar);
+  uint64_t *sel_full = bar + 2 * kF32MaxStages, *sel_empty = sel_full + 2;
+  float4* spts = reinterpret_cast<float4*>(smem + L.offXyz);
+  int cloud = -1;
+  for (int tile = tile_begin(a), it = 0; tile < tile_end(a); ++tile, ++it) {
+    const int b = tile / tpc, s0 = (tile % tpc) * a.St, slot = it & 1;
+    mbar_wait(sel_empty + slot, ((it >> 1) & 1) ^ 1);
+    int* idx = reinterpret_cast<int*>(smem + L.offIdx) + slot * L.tileRows;
+    float* scb = reinterpret_cast<float*>(smem + L.offCb) +
+                 slot * a.St * L.C1p;
+    // neighbours: idx[s*KRt + k], rows k >= K repeat k = 0; centroids
+    // past S, and the rows past St*KRt, select point 0
+    if constexpr (kGivenIdx) {
+      for (int r = t; r < L.tileRows; r += 128) {
+        const int s = r / L.KRt, k = r % L.KRt, sg = s0 + s;
+        idx[r] = s < a.St && sg < a.S
+                     ? __ldg(a.idx + (static_cast<size_t>(b) * a.S + sg) * a.K +
+                             (k < a.K ? k : 0))
+                     : 0;
+      }
+    } else {
+      // the cloud's points in shared memory, where they fit, each with its
+      // |p|^2 (one 16-byte load a visit; NaN points pad the last round),
+      // once every warp is past the last cloud's walks
+      const float* xyz = a.xyz + static_cast<size_t>(b) * a.N * 3;
+      if (a.xyz_smem && b != cloud) {
+        named_bar(kBar, 128);
+        for (int i = t; i < round_up(a.N, 32 * kSelectU); i += 128) {
+          float4 v = mm3d_bq_nan_point();
+          if (i < a.N) {
+            const float px = __ldg(xyz + 3 * i), py = __ldg(xyz + 3 * i + 1),
+                        pz = __ldg(xyz + 3 * i + 2);
+            v = make_float4(px, py, pz, mm3d_dot3(px, py, pz, px, py, pz));
+          }
+          spts[i] = v;
+        }
+        named_bar(kBar, 128);
+        cloud = b;
+      }
+      for (int s = pw; s < a.St; s += 4) {
+        const int sg = s0 + s;
+        int* row = idx + s * L.KRt;
+        if (sg < a.S) {
+          const float* c = a.new_xyz + (static_cast<size_t>(b) * a.S + sg) * 3;
+          if (a.xyz_smem)
+            mm3d_ball_query_warp<kSelectU>(BqCloud4{spts}, a.N, c[0], c[1],
+                                           c[2], a.r2, a.K, row);
+          else
+            mm3d_ball_query_warp<kSelectU>(BqCloud3{xyz}, a.N, c[0], c[1],
+                                           c[2], a.r2, a.K, row);
+          const int first = row[0];
+          for (int k = a.K + lane; k < L.KRt; k += 32) row[k] = first;
+        } else {
+          for (int k = lane; k < L.KRt; k += 32) row[k] = 0;
+        }
+      }
+      for (int r = a.St * L.KRt + t; r < L.tileRows; r += 128) idx[r] = 0;
+    }
+    // the tile's cbias rows, centroids past S clamped to S - 1
+    for (int s = pw; s < a.St; s += 4) {
+      const float* cb = static_cast<const float*>(a.cbias) +
+                        (static_cast<size_t>(b) * a.S + min(s0 + s, a.S - 1)) *
+                            a.C1;
+      for (int c = lane; c < L.C1p; c += 32)
+        scb[s * L.C1p + c] = c < a.C1 ? __ldg(cb + c) : 0.f;
+    }
+    mbar_arrive(sel_full + slot);
+  }
+}
+
+template <bool kGivenIdx>
+__device__ void f32_gather(const SaArgs& a, unsigned char* smem) {
+  const F32Layout L(a);
+  const int t = threadIdx.x - kF32Consumers - 128, pw = t >> 5;
+  constexpr int kB = 4;  // pre loads a thread keeps in flight
+  const int tpc = (a.S + a.St - 1) / a.St, Qh = L.C1p / 8;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.offBar);
+  uint64_t *full = bar, *empty = bar + kF32MaxStages;
+  uint64_t *sel_full = bar + 2 * kF32MaxStages, *sel_empty = sel_full + 2;
+  const bool vec = a.C1 % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(a.pre) & 15) == 0;
+  // this thread's rows of a block: row r16 of row groups pw and pw + 4 (of
+  // 8 at 128 rows, 4 at 64); its channel quads 2*qp + qq, qp < Qh: a warp's
+  // loads fill whole 32-byte sectors and its transposing stores hit 32
+  // different banks
+  const int r16 = t & 15, qq = (t >> 4) & 1;
+  const int nrow = a.rows == 128 ? 2 : 1, items = nrow * Qh;
+  int use = 0;
+  for (int tile = tile_begin(a), it = 0; tile < tile_end(a); ++tile, ++it) {
+    const int b = tile / tpc, slot = it & 1;
+    mbar_wait(sel_full + slot, (it >> 1) & 1);
+    const int* idx =
+        reinterpret_cast<const int*>(smem + L.offIdx) + slot * L.tileRows;
+    const float* scb = reinterpret_cast<const float*>(smem + L.offCb) +
+                       slot * a.St * L.C1p;
+    const float* pre = static_cast<const float*>(a.pre) +
+                       static_cast<size_t>(b) * a.N * a.C1;
+    for (int blk = 0; blk < L.blocks; ++blk, ++use) {
+      const int stage = use % a.stages;
+      mbar_wait(empty + stage, ((use / a.stages) & 1) ^ 1);
+      float* A = reinterpret_cast<float*>(smem + L.offA + stage * L.stageA);
+      int rr[2];
+      const float *src[2], *cbr[2];
+      for (int i = 0; i < 2; ++i) {  // this thread's rows, their cbias rows
+        rr[i] = (pw + 4 * (i < nrow ? i : 0)) * 16 + r16;
+        const int tr = blk * a.rows + rr[i];
+        src[i] = pre + static_cast<size_t>(idx[tr]) * a.C1;
+        cbr[i] = scb + (L.blocks > 1 ? 0 : min(tr / L.KR, a.St - 1)) * L.C1p;
+      }
+      for (int m0 = 0; m0 < items; m0 += kB) {
+        float4 p[kB];
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const int m = m0 + u, i = m >= Qh, c0 = 4 * (2 * (m - i * Qh) + qq);
+          p[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (m < items && c0 < a.C1) {
+            if (vec) {
+              p[u] = __ldg(reinterpret_cast<const float4*>(src[i] + c0));
+            } else {
+              float* pv = &p[u].x;
+              for (int j = 0; j < 4 && c0 + j < a.C1; ++j)
+                pv[j] = __ldg(src[i] + c0 + j);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const int m = m0 + u, i = m >= Qh, c0 = 4 * (2 * (m - i * Qh) + qq);
+          if (m < items) {
+            const float4 q = c0 < a.C1
+                                 ? *reinterpret_cast<const float4*>(cbr[i] + c0)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+            float* dst = A + static_cast<size_t>(c0) * L.ldA + rr[i];
+            dst[0] = fmaxf(p[u].x + q.x, 0.f);
+            dst[L.ldA] = fmaxf(p[u].y + q.y, 0.f);
+            dst[2 * L.ldA] = fmaxf(p[u].z + q.z, 0.f);
+            dst[3 * L.ldA] = fmaxf(p[u].w + q.w, 0.f);
+          }
+        }
+      }
+      mbar_arrive(full + stage);
+    }
+    mbar_arrive(sel_empty + slot);
+  }
+}
+
+// V consecutive floats of shared memory into registers (one 16-, 8- or
+// 4-byte load)
+template <int V>
+__device__ __forceinline__ void f32_ld(float* v, const float* p) {
+  if constexpr (V == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (V == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// acc += A[0:kF32BK] x W[0:kF32BK] for the thread's rows (A points at its
+// first, ra: ra..ra+3, and ra + 64.. at TM = 8) and columns (W points at
+// its first, ca: TN/2 from there and TN/2 from NC/2 on): A channel-major
+// with leading dimension LD, W [k][NC] (a chunk of NC columns)
+template <int TM, int TN, int LD, int NC>
+__device__ __forceinline__ void f32_panel(float (&acc)[TM][TN],
+                                          const float* __restrict__ A,
+                                          const float* __restrict__ W) {
+  constexpr int ldA = LD;
+#pragma unroll
+  for (int k = 0; k < kF32BK; ++k) {
+    float x[TM], w[TN];
+    f32_ld<4>(x, A + k * ldA);
+    if constexpr (TM == 8) f32_ld<4>(x + 4, A + k * ldA + 64);
+    f32_ld<TN / 2>(w, W + k * NC);
+    f32_ld<TN / 2>(w + TN / 2, W + k * NC + NC / 2);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(x[i], w[j], acc[i][j]);
+  }
+}
+
+// The consumers' state: the layout, the thread's place in the 16 x 16 grid
+// (chunk() maps it onto the 32 x 8 grid of narrow chunks)
+// and the streamed weights' panel ring (panel g of the block's sequence:
+// layer 1's chunks, then layer 2's, each kF32Panel rows at a time, the same
+// sequence for every block of rows).
+struct F32Consumer {
+  const SaArgs& a;
+  F32Layout L;
+  unsigned char* smem;
+  int ct, lane, wr, rgl, ra, cgi;  // cgi: the column group 0..15
+  int ks1, ks2, P, g;
+  __device__ F32Consumer(const SaArgs& args, unsigned char* s)
+      : a(args), L(args), smem(s) {
+    ct = threadIdx.x;
+    lane = ct & 31;
+    const int warp = ct >> 5;
+    wr = warp & 3;
+    rgl = lane & 3;
+    ra = (wr * 4 + rgl) * 4;
+    cgi = (warp >> 2) * 8 + (lane >> 2);
+    ks1 = (L.C1p + kF32Panel - 1) / kF32Panel;
+    ks2 = (L.K2p + kF32Panel - 1) / kF32Panel;
+    P = (L.N1p / L.NC1) * ks1 + (L.N2p / L.NC2) * ks2;
+    g = 0;
+  }
+  __device__ float* ring(int slot) const {
+    return reinterpret_cast<float*>(smem + slot * L.offW2);
+  }
+  // copies panel `seq` of the sequence into its slot (seq & 1)
+  __device__ void fetch(int seq) {
+    int p = seq % P;
+    const int n1p = (L.N1p / L.NC1) * ks1;
+    const bool l2 = p >= n1p;
+    if (l2) p -= n1p;
+    const int ks = l2 ? ks2 : ks1, NC = l2 ? L.NC2 : L.NC1;
+    const int Kin = l2 ? a.C2 : a.C1, N = l2 ? a.C3 : a.C2;
+    const float* W = static_cast<const float*>(l2 ? a.w2 : a.w1);
+    const int c0 = (p / ks) * NC, k0 = (p % ks) * kF32Panel;
+    float* dst = ring(seq & 1);
+    if (N % 4 == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0) {
+      const int n4 = NC / 4;
+      for (int e = ct; e < kF32Panel * n4; e += kF32Consumers) {
+        const int k = k0 + e / n4, n = c0 + (e % n4) * 4;
+        const bool ok = k < Kin && n < N;
+        cp_async16(dst + 4 * e, ok ? W + static_cast<size_t>(k) * N + n : W,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int e = ct; e < kF32Panel * NC; e += kF32Consumers) {
+        const int k = k0 + e / NC, n = c0 + e % NC;
+        const bool ok = k < Kin && n < N;
+        cp_async4(dst + e, ok ? W + static_cast<size_t>(k) * N + n : W,
+                  ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  }
+  // the next streamed panel: its copies done and seen by every consumer,
+  // every consumer past the panel before it (whose slot the next one takes)
+  __device__ const float* next() {
+    cp_async_wait_all();
+    named_bar(1, kF32Consumers);
+    fetch(g + 1);
+    return ring(g++ & 1);
+  }
+  __device__ void bar() { named_bar(1, kF32Consumers); }
+
+  // One chunk of NC = 16*TN0 output columns (chunk c) over `rows` = 16*TM0
+  // rows: X channel-major [Kin rows][ldA] times the layer's weights, then
+  // the layer's epilogue. Layer 1: + b1, relu, stored into H; layer 2: the
+  // slab maxima into part buffer pbuf. A chunk narrower than 128 columns
+  // over a block of 128 rows takes thread tiles of 4 rows x 2*TN0 columns
+  // on a 32 x 8 grid (each warp 16 rows, a slab, of every column): one A
+  // load a k-step in place of two.
+  template <int TM0, int TN0, bool kL2>
+  __device__ __forceinline__ void chunk(const float* X, int c, int pbuf) {
+    constexpr bool kWide = TM0 == 8 && TN0 < 8;
+    constexpr int TM = kWide ? 4 : TM0, TN = kWide ? 2 * TN0 : TN0;
+    constexpr int NC = 16 * TN0, ld = 16 * TM0 + 4;
+    const int warp = ct >> 5;
+    const int ra = kWide ? (warp * 4 + rgl) * 4 : this->ra;
+    const int ca = (kWide ? lane >> 2 : cgi) * (TN / 2), cb = ca + NC / 2;
+    const int Kin = kL2 ? L.K2p : L.C1p;
+    // the chunk's resident weights, [Kin][NC]
+    const float* Wres = reinterpret_cast<const float*>(
+                            smem + (kL2 ? L.offW2 : 0)) +
+                        static_cast<size_t>(c) * Kin * NC;
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    if (a.resident) {
+      for (int k0 = 0; k0 < Kin; k0 += kF32BK)
+        f32_panel<TM, TN, ld, NC>(acc, X + k0 * ld + ra,
+                                  Wres + k0 * NC + ca);
+    } else {
+      for (int k0 = 0; k0 < Kin; k0 += kF32Panel) {
+        const float* W = next() + ca;
+        f32_panel<TM, TN, ld, NC>(acc, X + k0 * ld + ra, W);
+        // the panel's second step, where Kin has it
+        if (kF32Panel > kF32BK && k0 + kF32BK < Kin)
+          f32_panel<TM, TN, ld, NC>(acc, X + (k0 + kF32BK) * ld + ra,
+                                    W + kF32BK * NC);
+      }
+    }
+    if constexpr (!kL2) {
+      const float* sb1 = reinterpret_cast<const float*>(smem + L.offB1);
+      float* H = reinterpret_cast<float*>(smem + L.offH);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = c * NC + (j < TN / 2 ? ca + j : cb + j - TN / 2);
+        if (col < L.K2p) {  // H keeps the rows layer 2 reads
+          const float bb = sb1[col];
+#pragma unroll
+          for (int h = 0; h < TM / 4; ++h)
+            *reinterpret_cast<float4*>(H + static_cast<size_t>(col) * ld +
+                                       ra + 64 * h) =
+                make_float4(fmaxf(acc[4 * h][j] + bb, 0.f),
+                            fmaxf(acc[4 * h + 1][j] + bb, 0.f),
+                            fmaxf(acc[4 * h + 2][j] + bb, 0.f),
+                            fmaxf(acc[4 * h + 3][j] + bb, 0.f));
+        }
+      }
+    } else {
+      // The max over K on the sums: x -> relu(x + b2) never decreases, so
+      // it commutes with the max. A thread's 4 rows of a half, then the 4
+      // lanes (rgl) of its 16-row slab, which lies in one centroid: the
+      // warp's (wide tiles), or the warp-row's of each half.
+      float* part = reinterpret_cast<float*>(smem + L.offPart) +
+                    static_cast<size_t>(pbuf) * (a.rows / 16) * L.NC2;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = j < TN / 2 ? ca + j : cb + j - TN / 2;
+#pragma unroll
+        for (int h = 0; h < TM / 4; ++h) {
+          float m = fmaxf(fmaxf(acc[4 * h][j], acc[4 * h + 1][j]),
+                          fmaxf(acc[4 * h + 2][j], acc[4 * h + 3][j]));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (rgl == 0)
+            part[(kWide ? warp : h * (a.rows / 32) + wr) * L.NC2 + col] = m;
+        }
+      }
+    }
+  }
+
+  template <int TM, bool kL2>
+  __device__ __forceinline__ void chunk_any(const float* X, int c, int pbuf) {
+    const int NC = kL2 ? L.NC2 : L.NC1;
+    if (NC == 128)
+      chunk<TM, 8, kL2>(X, c, pbuf);
+    else if (NC == 64)
+      chunk<TM, 4, kL2>(X, c, pbuf);
+    else
+      chunk<TM, 2, kL2>(X, c, pbuf);
+  }
+
+  // each centroid's slab maxima of layer-2 chunk c (buffer pbuf): + b2,
+  // relu, written; a centroid walked in blocks merges them into its
+  // running row first
+  __device__ void combine(int b, int s0, int blk, int c, int pbuf) {
+    const int NC2 = L.NC2, nslab = a.rows / 16;
+    const float* part = reinterpret_cast<const float*>(smem + L.offPart) +
+                        static_cast<size_t>(pbuf) * nslab * NC2;
+    const float* sb2 = reinterpret_cast<const float*>(smem + L.offB2);
+    float* out = static_cast<float*>(a.out);
+    if (L.blocks == 1) {
+      const int spc = L.KR / 16;
+      for (int e = ct; e < a.St * NC2; e += kF32Consumers) {
+        const int s = e / NC2, cl = e % NC2, col = c * NC2 + cl;
+        const int sg = s0 + s;
+        if (sg >= a.S || col >= a.C3) continue;
+        const float* pp = part + s * spc * NC2 + cl;
+        float m = pp[0];
+        for (int sl = 1; sl < spc; ++sl) m = fmaxf(m, pp[sl * NC2]);
+        out[(static_cast<size_t>(b) * a.S + sg) * a.C3 + col] =
+            fmaxf(m + sb2[col], 0.f);
+      }
+    } else {
+      float* run = reinterpret_cast<float*>(smem + L.offRun);
+      for (int cl = ct; cl < NC2; cl += kF32Consumers) {
+        const int col = c * NC2 + cl;
+        if (col >= a.C3) continue;
+        float m = part[cl];
+        for (int sl = 1; sl < nslab; ++sl) m = fmaxf(m, part[sl * NC2 + cl]);
+        if (blk > 0) m = fmaxf(m, run[col]);
+        if (blk == L.blocks - 1)
+          out[(static_cast<size_t>(b) * a.S + s0) * a.C3 + col] =
+              fmaxf(m + sb2[col], 0.f);
+        else
+          run[col] = m;
+      }
+    }
+  }
+};
+
+// The consumers: for each block of rows, layer 1 chunk by chunk into H, the
+// A stage handed back, then layer 2 chunk by chunk with the max over K.
+template <int TM>
+__device__ void f32_consume(const SaArgs& a, unsigned char* smem) {
+  F32Consumer C(a, smem);
+  const F32Layout& L = C.L;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.offBar);
+  uint64_t *full = bar, *empty = bar + kF32MaxStages;
+  const float* H = reinterpret_cast<const float*>(smem + L.offH);
+  const int tpc = (a.S + a.St - 1) / a.St;
+  const int n1 = L.N1p / L.NC1, n2 = L.N2p / L.NC2;
+  if (!a.resident) C.fetch(0);
+  int use = 0, pbuf = 0;
+  for (int tile = tile_begin(a); tile < tile_end(a); ++tile) {
+    const int b = tile / tpc, s0 = (tile % tpc) * a.St;
+    for (int blk = 0; blk < L.blocks; ++blk, ++use) {
+      const int stage = use % a.stages;
+      mbar_wait(full + stage, (use / a.stages) & 1);
+      const float* A =
+          reinterpret_cast<const float*>(smem + L.offA + stage * L.stageA);
+      for (int c = 0; c < n1; ++c) C.chunk_any<TM, false>(A, c, 0);
+      __syncwarp();
+      if (C.lane == 0) mbar_arrive(empty + stage);  // A is read
+      C.bar();  // H is complete
+      for (int c = 0; c < n2; ++c) {
+        C.chunk_any<TM, true>(H, c, pbuf);
+        C.bar();  // the slab maxima are in; every thread is past H's reads
+        C.combine(b, s0, blk, c, pbuf);
+        pbuf ^= 1;
+      }
+    }
+  }
+  cp_async_wait_all();  // the panel prefetched past the last block
+}
+
+// The f32 kernel; TM = 8 for blocks of 128 rows, 4 for 64.
+template <int TM, bool kGivenIdx>
+__global__ void __launch_bounds__(kF32Threads, 1) sa_f32_kernel(SaArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const F32Layout L(a);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.offBar);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    // an A stage full: the gathering warpgroup's threads; empty: a lane a
+    // consumer warp; a tile's neighbours selected: the selecting
+    // warpgroup's threads; gathered: the gathering warpgroup's
+    for (int i = 0; i < kF32MaxStages; ++i) {
+      mbar_init(bar + i, 128);
+      mbar_init(bar + kF32MaxStages + i, kF32Consumers / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(bar + 2 * kF32MaxStages + i, 128);
+      mbar_init(bar + 2 * kF32MaxStages + 2 + i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // once a block: resident weights, biases, zero padded
+  if (a.resident) {
+    f32_copy_weights(reinterpret_cast<float*>(smem),
+                     static_cast<const float*>(a.w1), a.C1, a.C2, L.C1p,
+                     L.N1p, L.NC1, tid, kF32Threads);
+    f32_copy_weights(reinterpret_cast<float*>(smem + L.offW2),
+                     static_cast<const float*>(a.w2), a.C2, a.C3, L.K2p,
+                     L.N2p, L.NC2, tid, kF32Threads);
+  }
+  f32_copy_weights(reinterpret_cast<float*>(smem + L.offB1),
+                   static_cast<const float*>(a.b1), 1, a.C2, 1, L.N1p, L.N1p,
+                   tid, kF32Threads);
+  f32_copy_weights(reinterpret_cast<float*>(smem + L.offB2),
+                   static_cast<const float*>(a.b2), 1, a.C3, 1, L.N2p, L.N2p,
+                   tid, kF32Threads);
+  __syncthreads();
+  // launched with 128 registers a thread: the producers give 48 each to
+  // the consumers' sums and prefetched operands
+  if (tid >= kF32Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
+    if (tid < kF32Consumers + 128)
+      f32_select<kGivenIdx>(a, smem);
+    else
+      f32_gather<kGivenIdx>(a, smem);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 176;\n" ::: "memory");
+    f32_consume<TM>(a, smem);
+  }
+}
+
+// ============================================== loop kernel (wide bf16)
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;  // output columns per product pass
 
 // Shared-memory layout, in bytes: idx[R] | A[Rp][ldA] | H[Rp][ldH] | Sc[Rp][ldS]
-// (cuda_kernels._loop_smem computes the same total)
+// (cuda_kernels._loop_smem computes the same total), A and H in bf16
 struct Layout {
   int R, Rp, C1p, C2p, ldA, ldH, ldS;
   size_t offA, offH, offS, total;
-  __host__ __device__ Layout(int St, int K, int C1, int C2, int esize) {
+  __host__ __device__ Layout(int St, int K, int C1, int C2) {
+    constexpr int esize = sizeof(bf16);
     R = St * K;
     Rp = (R + 15) & ~15;
     C1p = round_up(C1, 16);
@@ -930,7 +1561,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg_f(const bf16* p) {
   return __uint_as_float(
       static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
@@ -940,8 +1570,7 @@ __device__ __forceinline__ float ldg_f(const bf16* p) {
 // Sc[Rp][ncols] = X[Rp][0:Kin] @ W[0:Kin][c0:c0+ncols] in f32, W [Kin][Nout]
 // in device memory, columns past Nout 0; CUDA-core FMAs, each thread four
 // rows of one column.
-template <typename T>
-__device__ void product_chunk(const T* X, int ldx, int Kin, const T* W,
+__device__ void product_chunk(const bf16* X, int ldx, int Kin, const bf16* W,
                               int Nout, int c0, int ncols, float* Sc, int ldS,
                               int Rp) {
   const int nq = (Rp / 4) * ncols;
@@ -949,8 +1578,8 @@ __device__ void product_chunk(const T* X, int ldx, int Kin, const T* W,
     const int r = (e / ncols) * 4, c = e % ncols;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     if (c0 + c < Nout) {
-      const T* w = W + c0 + c;
-      const T* x = X + r * ldx;
+      const bf16* w = W + c0 + c;
+      const bf16* x = X + r * ldx;
       for (int k = 0; k < Kin; ++k) {
         const float wk = ldg_f(w + static_cast<size_t>(k) * Nout);
         a0 = fmaf(to_f(x[k]), wk, a0);
@@ -966,25 +1595,25 @@ __device__ void product_chunk(const T* X, int ldx, int Kin, const T* W,
   }
 }
 
-template <typename T, bool kGivenIdx>
+template <bool kGivenIdx>
 __global__ void __launch_bounds__(kThreads) sa_loop_kernel(SaArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(a.St, a.K, a.C1, a.C2, sizeof(T));
+  const Layout L(a.St, a.K, a.C1, a.C2);
   int* idx = reinterpret_cast<int*>(smem);
-  T* A = reinterpret_cast<T*>(smem + L.offA);
-  T* H = reinterpret_cast<T*>(smem + L.offH);
+  bf16* A = reinterpret_cast<bf16*>(smem + L.offA);
+  bf16* H = reinterpret_cast<bf16*>(smem + L.offH);
   float* Sc = reinterpret_cast<float*>(smem + L.offS);
 
   const int b = blockIdx.y;
   const int s0 = blockIdx.x * a.St;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* pre = static_cast<const T*>(a.pre) + static_cast<size_t>(b) * a.N * a.C1;
-  const T* cb = static_cast<const T*>(a.cbias) + static_cast<size_t>(b) * a.S * a.C1;
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* b1 = static_cast<const T*>(a.b1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const T* b2 = static_cast<const T*>(a.b2);
-  T* out = static_cast<T*>(a.out);
+  const bf16* pre = static_cast<const bf16*>(a.pre) + static_cast<size_t>(b) * a.N * a.C1;
+  const bf16* cb = static_cast<const bf16*>(a.cbias) + static_cast<size_t>(b) * a.S * a.C1;
+  const bf16* w1 = static_cast<const bf16*>(a.w1);
+  const bf16* b1 = static_cast<const bf16*>(a.b1);
+  const bf16* w2 = static_cast<const bf16*>(a.w2);
+  const bf16* b2 = static_cast<const bf16*>(a.b2);
+  bf16* out = static_cast<bf16*>(a.out);
 
   // 1. neighbours, idx[s*K + k] for the tile's centroids; rows past S
   // select point 0
@@ -1012,18 +1641,18 @@ __global__ void __launch_bounds__(kThreads) sa_loop_kernel(SaArgs a) {
 
   // 2. gather: A[r] = relu(rnd(pre[idx[r]] + cbias[s])), zero padding
   for (int r = warp; r < L.Rp; r += kWarps) {
-    T* row = A + r * L.ldA;
+    bf16* row = A + r * L.ldA;
     if (r < L.R) {
       const int sg = min(s0 + r / a.K, a.S - 1);
-      const T* src = pre + static_cast<size_t>(idx[r]) * a.C1;
-      const T* cbr = cb + static_cast<size_t>(sg) * a.C1;
+      const bf16* src = pre + static_cast<size_t>(idx[r]) * a.C1;
+      const bf16* cbr = cb + static_cast<size_t>(sg) * a.C1;
       for (int c = lane; c < L.C1p; c += 32) {
         float v = 0.f;
-        if (c < a.C1) v = fmaxf(rnd<T>(to_f(src[c]) + to_f(cbr[c])), 0.f);
-        row[c] = from_f<T>(v);
+        if (c < a.C1) v = fmaxf(rnd<bf16>(to_f(src[c]) + to_f(cbr[c])), 0.f);
+        row[c] = from_f<bf16>(v);
       }
     } else {
-      for (int c = lane; c < L.C1p; c += 32) row[c] = from_f<T>(0.f);
+      for (int c = lane; c < L.C1p; c += 32) row[c] = from_f<bf16>(0.f);
     }
   }
   __syncthreads();
@@ -1035,9 +1664,9 @@ __global__ void __launch_bounds__(kThreads) sa_loop_kernel(SaArgs a) {
     __syncthreads();
     for (int e = threadIdx.x; e < L.Rp * ncols; e += kThreads) {
       const int r = e / ncols, c = e % ncols;
-      const float v = rnd<T>(Sc[r * L.ldS + c]);
+      const float v = rnd<bf16>(Sc[r * L.ldS + c]);
       const float bias = c0 + c < a.C2 ? to_f(b1[c0 + c]) : 0.f;
-      H[r * L.ldH + c0 + c] = from_f<T>(fmaxf(rnd<T>(v + bias), 0.f));
+      H[r * L.ldH + c0 + c] = from_f<bf16>(fmaxf(rnd<bf16>(v + bias), 0.f));
     }
     __syncthreads();
   }
@@ -1054,10 +1683,10 @@ __global__ void __launch_bounds__(kThreads) sa_loop_kernel(SaArgs a) {
       const float bias = to_f(b2[cg]);
       float m = 0.f;
       for (int k = 0; k < a.K; ++k) {
-        const float v = rnd<T>(Sc[(s * a.K + k) * L.ldS + c]);
-        m = fmaxf(m, fmaxf(rnd<T>(v + bias), 0.f));
+        const float v = rnd<bf16>(Sc[(s * a.K + k) * L.ldS + c]);
+        m = fmaxf(m, fmaxf(rnd<bf16>(v + bias), 0.f));
       }
-      out[(static_cast<size_t>(b) * a.S + sg) * a.C3 + cg] = from_f<T>(m);
+      out[(static_cast<size_t>(b) * a.S + sg) * a.C3 + cg] = from_f<bf16>(m);
     }
     __syncthreads();
   }
@@ -1065,73 +1694,126 @@ __global__ void __launch_bounds__(kThreads) sa_loop_kernel(SaArgs a) {
 
 // ================================================================ launchers
 
-template <typename T, bool kGivenIdx>
+template <bool kGivenIdx>
 int launch_loop(const SaArgs& a, size_t smem, cudaStream_t stream) {
-  const Layout L(a.St, a.K, a.C1, a.C2, sizeof(T));
+  const Layout L(a.St, a.K, a.C1, a.C2);
   if (L.total != smem) return static_cast<int>(cudaErrorInvalidValue);
   if (L.total > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        sa_loop_kernel<T, kGivenIdx>,
+        sa_loop_kernel<kGivenIdx>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L.total));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((a.S + a.St - 1) / a.St, a.B);
-  sa_loop_kernel<T, kGivenIdx><<<grid, kThreads, L.total, stream>>>(a);
+  sa_loop_kernel<kGivenIdx><<<grid, kThreads, L.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Persistent blocks of `kernel`, as many as the card holds (at most one a
+// tile). Its multiprocessors and blocks a multiprocessor are asked again
+// only when the device, the shared memory or the block size changes: the
+// cache is the caller's, one a kernel instantiation.
+struct LaunchCache {
+  int dev = -1, threads = 0, sms = 0, per_sm = 0;
+  size_t smem = 0;
+};
+
+template <class Kernel>
+cudaError_t persistent_grid(Kernel kernel, LaunchCache& c, const SaArgs& a,
+                            int threads, size_t smem, int* grid) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev != c.dev || smem != c.smem || threads != c.threads) {
+    if ((e = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &c.per_sm, kernel, threads, smem)) != cudaSuccess)
+      return e;
+    c.dev = dev;
+    c.smem = smem;
+    c.threads = threads;
+  }
+  if (c.per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long tiles = static_cast<long>(a.B) * ((a.S + a.St - 1) / a.St);
+  *grid = static_cast<int>(tiles < c.sms * c.per_sm ? tiles : c.sms * c.per_sm);
+  return cudaSuccess;
 }
 
 template <int NPW, bool kGivenIdx>
 int launch_ws(const SaArgs& a, size_t smem, cudaStream_t stream) {
   const WsLayout L(a);
   if (L.total != smem || a.rows % 64 || (a.rows > 128 && a.rows % 128) ||
-      a.St * L.KR > a.rows ||
+      a.St * L.KR > a.rows || a.stages != NPW ||
       (NPW > 1 && !a.resident) ||
       (NPW == 2 && a.rows > 128))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = sa_ws_kernel<NPW, kGivenIdx>;
   const int threads = 128 * ((a.rows < 128 ? a.rows : 128) / 64 + NPW);
-  // blocks a multiprocessor holds, asked again only when the device, the
-  // shared memory or the block size changes
-  static int last_dev = -1, last_threads = 0, sms = 0, per_sm = 0;
-  static size_t last_smem = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static LaunchCache cache;
+  const bool fresh = cache.dev < 0;
+  int grid = 0;
+  cudaError_t e = persistent_grid(kernel, cache, a, threads, smem, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev != last_dev || smem != last_smem || threads != last_threads) {
-    if ((e = cudaFuncSetAttribute(kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  static_cast<int>(smem))) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, threads, smem)) != cudaSuccess)
-      return static_cast<int>(e);
+  if (fresh && NPW == 2) {
     // two producers move registers to the consumers with setmaxnreg,
     // which waits for the 2 x 128 x (152 - R) it asks to be freed by the
     // 2 x 128 x (R - 104) given back: launch with R >= 128 or not at all
     cudaFuncAttributes attr;
     if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
       return static_cast<int>(e);
-    if (NPW == 2 && attr.numRegs < 128)
+    if (attr.numRegs < 128) {
+      cache.dev = -1;
       return static_cast<int>(cudaErrorInvalidConfiguration);
-    last_dev = dev;
-    last_smem = smem;
-    last_threads = threads;
+    }
   }
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long tiles = static_cast<long>(a.B) * ((a.S + a.St - 1) / a.St);
-  const int grid = static_cast<int>(tiles < sms * per_sm ? tiles : sms * per_sm);
   kernel<<<grid, threads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 kernel: blocks of 128 rows (TM 8) or 64 (TM 4), two producer
+// warpgroups, one or two A stages.
+template <int TM, bool kGivenIdx>
+int launch_f32(const SaArgs& a, size_t smem, cudaStream_t stream) {
+  const F32Layout L(a);
+  if (L.total != smem || a.producers != 2 ||
+      a.stages < 1 || a.stages > kF32MaxStages || a.St < 1 ||
+      (L.blocks == 1 ? a.St * L.KR > a.rows : a.St != 1) ||
+      (kGivenIdx && a.xyz_smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sa_f32_kernel<TM, kGivenIdx>;
+  static LaunchCache cache;
+  const bool fresh = cache.dev < 0;
+  int grid = 0;
+  cudaError_t e = persistent_grid(kernel, cache, a, kF32Threads, smem, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fresh) {
+    // setmaxnreg waits for the 256 x (176 - R) registers it asks to be
+    // freed by the 256 x (R - 80) given back: launch with R = 128 or not
+    cudaFuncAttributes attr;
+    if ((e = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
+      return static_cast<int>(e);
+    if (attr.numRegs != 128) {
+      cache.dev = -1;
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+  }
+  kernel<<<grid, kF32Threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kGivenIdx>
 int launch(int is_bf16, const SaArgs& a, int smem, cudaStream_t stream) {
-  if (a.producers == 0)
-    return is_bf16 ? launch_loop<bf16, kGivenIdx>(a, smem, stream)
-                   : launch_loop<float, kGivenIdx>(a, smem, stream);
-  if (!is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_bf16) {
+    if (a.rows == 128) return launch_f32<8, kGivenIdx>(a, smem, stream);
+    if (a.rows == 64) return launch_f32<4, kGivenIdx>(a, smem, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.producers == 0) return launch_loop<kGivenIdx>(a, smem, stream);
   if (a.producers == 1) return launch_ws<1, kGivenIdx>(a, smem, stream);
   if (a.producers == 2) return launch_ws<2, kGivenIdx>(a, smem, stream);
   if constexpr (!kGivenIdx)  // three producers: the ball query's plans only
@@ -1143,7 +1825,7 @@ SaArgs tail_args(const void* pre, const void* cbias, const void* w1,
                  const void* b1, const void* w2, const void* b2, void* out,
                  int B, int N, int S, int K, int C1, int C2, int C3, int St,
                  int rows, int resident, int xyz_smem,
-                 int producers) {
+                 int producers, int stages) {
   SaArgs a{};
   a.pre = pre;
   a.cbias = cbias;
@@ -1164,26 +1846,26 @@ SaArgs tail_args(const void* pre, const void* cbias, const void* w1,
   a.resident = resident;
   a.xyz_smem = xyz_smem;
   a.producers = producers;
-  a.stages = producers;
+  a.stages = stages;
   return a;
 }
 
 }  // namespace
 
-// The plan (St centroids a tile or block; rows, resident, xyz_smem and
-// producers, 0 for the loop kernel, which f32 always takes; the
-// shared-memory bytes) is cuda_kernels.sa_plan's; a plan whose bytes
-// disagree with the kernel's layout is refused with cudaErrorInvalidValue.
-// Weights and biases unpadded, in pre's dtype.
+// The plan (St centroids a tile or block; rows, a tile's (bf16) or a
+// block's (f32); resident, xyz_smem; producers, 0 for the bf16 loop kernel;
+// stages, the A stages; the shared-memory bytes) is cuda_kernels.sa_plan's;
+// a plan whose bytes disagree with the kernel's layout is refused with
+// cudaErrorInvalidValue. Weights and biases unpadded, in pre's dtype.
 extern "C" int mm3d_fused_sa(int is_bf16, const void* xyz, const void* new_xyz,
                              const void* pre, const void* cbias, const void* w1,
                              const void* b1, const void* w2, const void* b2,
                              void* out, int B, int N, int S, int K, int C1,
                              int C2, int C3, int St, int rows,
                              int resident, int xyz_smem, int producers,
-                             int smem, float r2, void* stream) {
+                             int stages, int smem, float r2, void* stream) {
   SaArgs a = tail_args(pre, cbias, w1, b1, w2, b2, out, B, N, S, K, C1, C2,
-                       C3, St, rows, resident, xyz_smem, producers);
+                       C3, St, rows, resident, xyz_smem, producers, stages);
   a.xyz = static_cast<const float*>(xyz);
   a.new_xyz = static_cast<const float*>(new_xyz);
   a.r2 = r2;
@@ -1198,10 +1880,10 @@ extern "C" int mm3d_fused_sa_idx(int is_bf16, const void* idx,
                                  const void* w2, const void* b2, void* out,
                                  int B, int N, int S, int K, int C1, int C2,
                                  int C3, int St, int rows,
-                                 int resident, int producers, int smem,
-                                 void* stream) {
+                                 int resident, int producers, int stages,
+                                 int smem, void* stream) {
   SaArgs a = tail_args(pre, cbias, w1, b1, w2, b2, out, B, N, S, K, C1, C2,
-                       C3, St, rows, resident, 0, producers);
+                       C3, St, rows, resident, 0, producers, stages);
   a.idx = static_cast<const int*>(idx);
   return launch<true>(is_bf16, a, smem, static_cast<cudaStream_t>(stream));
 }

@@ -76,8 +76,8 @@ _SIGNATURES = {
     "mm3d_fps": ("fps", [_P, _P, _P, _I, _I, _I, _P]),
     "mm3d_fps_max_points": ("fps", []),
     "mm3d_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
-    "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 13 + [_F, _P]),
-    "mm3d_fused_sa_idx": ("fused_sa", [_I] + [_P] * 8 + [_I] * 12 + [_P]),
+    "mm3d_fused_sa": ("fused_sa", [_I] + [_P] * 9 + [_I] * 14 + [_F, _P]),
+    "mm3d_fused_sa_idx": ("fused_sa", [_I] + [_P] * 8 + [_I] * 13 + [_P]),
     "mm3d_gather_bwd": ("gather_bwd", [_I, _I] + [_P] * 7 + [_I] * 6
                         + [_P]),
     "mm3d_gather_bwd_max_rows": ("gather_bwd", []),
@@ -285,13 +285,17 @@ SMEM_LIMIT = 232448
 
 class SaPlan(NamedTuple):
     """How a fused SA launch cuts its work (``sa_plan``)."""
-    rows: int       # gathered rows a tile: a multiple of 64 (loop: St*K)
+    rows: int       # gathered rows a tile, a multiple of 64 (bf16 loop:
+                    # St*K); f32: rows a block, 128 or 64
     St: int         # centroids a tile
     KR: int         # rows a centroid: K rounded up to 16 (loop: K)
     resident: bool  # weights copied once a block (else streamed)
     xyz_smem: bool  # the cloud's points in shared memory (ball query)
-    producers: int  # producer warpgroups, each with its own A stage between
-                    # gather and products; 0: the loop kernel
+    producers: int  # producer warpgroups (bf16: each with its own A stage;
+                    # f32: two, a selecting and a gathering one); 0: the
+                    # bf16 loop kernel
+    stages: int     # A stages between gather and products (bf16: the
+                    # producers; loop kernel 0)
     smem: int       # shared-memory bytes a block
 
 
@@ -331,14 +335,54 @@ def _ws_smem(C1: int, C2: int, C3: int, rows: int, resident: bool,
             + producers * a(xyz_points * 12) + 128 + 1024)
 
 
-def _loop_smem(St: int, K: int, C1: int, C2: int, esize: int) -> int:
-    """Shared-memory bytes of the loop kernel (``Layout``): idx | A | H | an
-    f32 staging tile of 64 columns."""
+def _loop_smem(St: int, K: int, C1: int, C2: int) -> int:
+    """Shared-memory bytes of the bf16 loop kernel (``Layout``): idx | A |
+    H | an f32 staging tile of 64 columns."""
     R = St * K
     Rp = _up(R, 16)
-    skew = 16 // esize
-    return (_up(R * 4, 128) + Rp * (_up(C1, 16) + skew) * esize
-            + Rp * (_up(C2, 16) + skew) * esize + Rp * 68 * 4)
+    return (_up(R * 4, 128) + Rp * (_up(C1, 16) + 8) * 2
+            + Rp * (_up(C2, 16) + 8) * 2 + Rp * 68 * 4)
+
+
+# the f32 kernel: the k step its C1 and C2 are padded to; k rows a streamed
+# weight panel
+SA_F32_STEP, SA_F32_PANEL = 16, 32
+
+
+def _f32_chunk(C: int) -> int:
+    """Output columns a chunk of the f32 kernel: the least of 32, 64 and
+    128 that holds C (``f32_nc``)."""
+    return 32 if C <= 32 else 64 if C <= 64 else 128
+
+
+def _f32_smem(C1: int, C2: int, C3: int, K: int, rows: int, resident: bool,
+              xyz_points: int = 0, stages: int = 2) -> int:
+    """Shared-memory bytes of the f32 kernel (``F32Layout`` in
+    ``csrc/fused_sa.cu``), every part 128-byte aligned: weights (resident
+    w1 and w2 chunk by chunk, [C1p][NC1] and [K2p][NC2] a chunk, or two
+    panels of SA_F32_PANEL rows of the wider chunk), ``stages`` A stages
+    and H, channel-major with ``rows`` + 4 floats a channel, f32 biases,
+    two tiles' indices and cbias rows, two chunks' slab maxima, a running
+    row where a centroid is walked in blocks, the cloud's ``xyz_points``
+    points (16 bytes each, padded to the selection's rounds of 128),
+    mbarriers. C1p and K2p: C1 and C2 rounded up to SA_F32_STEP; N1p and
+    N2p: C2 and C3 rounded up to their chunk."""
+    def a(n):
+        return _up(n, 128)
+
+    NC1, NC2 = _f32_chunk(C2), _f32_chunk(C3)
+    C1p, K2p = _up(C1, SA_F32_STEP), _up(C2, SA_F32_STEP)
+    N1p, N2p = _up(C2, NC1), _up(C3, NC2)
+    KR = _up(K, 16)
+    blocks, St = (1, rows // KR) if KR <= rows else (-(-KR // rows), 1)
+    ld = rows + 4
+    w = (a(C1p * N1p * 4) + a(K2p * N2p * 4) if resident
+         else 2 * a(SA_F32_PANEL * max(NC1, NC2) * 4))
+    return (w + stages * a(C1p * ld * 4) + a(K2p * ld * 4) + a(N1p * 4)
+            + a(N2p * 4) + a(2 * blocks * rows * 4) + a(2 * St * C1p * 4)
+            + a(2 * (rows // 16) * NC2 * 4)
+            + (a(N2p * 4) if blocks > 1 else 0)
+            + a(_up(xyz_points, 128) * 16) + 128)
 
 
 def sa_plan(C1: int, C2: int, C3: int, K: int, S: int, dtype: torch.dtype,
@@ -354,11 +398,33 @@ def sa_plan(C1: int, C2: int, C3: int, K: int, S: int, dtype: torch.dtype,
     pace; two, not past 128 rows), then one; the ball-query form's points (N > 0 a cloud) in shared memory, then
     not. A tile holds St = rows // KR centroids of KR = K rounded up to 16
     rows. Where none fits (a C2 of 512 and more; K past 128 at wide
-    layers), and always for f32: the loop kernel (producers 0), the first
-    design's layout, St = 128 // K centroids a block (at least 1, at most
-    S)."""
+    layers): the loop kernel (producers 0), the first design's layout, St =
+    128 // K centroids a block (at least 1, at most S).
+
+    f32, the CUDA-core kernel (two producer warpgroups): the first that fits
+    of: weights resident, then streamed; blocks of 128 rows, then 64; two A
+    stages, then one; the points in shared memory, then not. A block holds
+    St = rows // KR centroids, or one centroid past ``rows`` rows, walked
+    in blocks."""
+    KR = _up(K, 16)
+    if dtype == torch.float32:
+        for resident in (True, False):
+            for rows in (128, 64):
+                for stages in (2, 1):
+                    for xyz in (True, False):
+                        if xyz and N == 0:
+                            continue
+                        smem = _f32_smem(C1, C2, C3, K, rows, resident,
+                                         N if xyz else 0, stages)
+                        if smem <= SMEM_LIMIT:
+                            return SaPlan(rows, max(1, rows // KR), KR,
+                                          resident, xyz, 2, stages, smem)
+        raise ValueError(
+            f"fused SA: no {dtype} tile plan for widths ({C1},{C2},{C3}) and "
+            f"K={K} fits the {SMEM_LIMIT} bytes of shared memory a block can "
+            f"use (blocks of 64 rows, one A stage, streamed weights need "
+            f"{_f32_smem(C1, C2, C3, K, 64, False, 0, 1)})")
     if dtype == torch.bfloat16:
-        KR = _up(K, 16)
         row_options = (128, 64) if KR <= 128 else (_up(KR, 128),)
         for resident in (True, False):
             for rows in row_options:
@@ -372,15 +438,15 @@ def sa_plan(C1: int, C2: int, C3: int, K: int, S: int, dtype: torch.dtype,
                                         N if xyz else 0, pw)
                         if smem <= SMEM_LIMIT:
                             return SaPlan(rows, rows // KR, KR, resident,
-                                          xyz, pw, smem)
+                                          xyz, pw, pw, smem)
     St = max(1, min(S, 128 // K)) if K <= 128 else 1
-    smem = _loop_smem(St, K, C1, C2, dtype.itemsize)
+    smem = _loop_smem(St, K, C1, C2)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"fused SA: no {dtype} tile plan for widths ({C1},{C2},{C3}) and "
             f"K={K} fits the {SMEM_LIMIT} bytes of shared memory a block can "
             f"use (the loop kernel needs {smem})")
-    return SaPlan(St * K, St, K, False, False, 0, smem)
+    return SaPlan(St * K, St, K, False, False, 0, 0, smem)
 
 
 def _sa_tail(name: str, B: int, N: int, S: int, K: int, pre, cbias, w1, b1,
@@ -405,7 +471,7 @@ def _sa_tail(name: str, B: int, N: int, S: int, K: int, pre, cbias, w1, b1,
     plan = sa_plan(C1, C2, C3, K, S, dt, N if ball else 0)
     dims = ((C1, C2, C3, plan.St, plan.rows, int(plan.resident))
             + ((int(plan.xyz_smem),) if ball else ())
-            + (plan.producers, plan.smem))
+            + (plan.producers, plan.stages, plan.smem))
     operands = tuple(t.to(dt).contiguous()
                      for t in (pre, cbias, w1, b1, w2, b2))
     return dims, operands
@@ -452,6 +518,7 @@ def _fused_sa_op(radius: float, nsample: int, xyz: torch.Tensor,
             _ptr(new_xyz), *map(_ptr, operands), _ptr(out), B, N, S,
             nsample, *dims, _r2(radius), _stream(pre))
     fused_sa.launches += 1
+    fused_sa.f32_launches += int(pre.dtype == torch.float32)
     return out
 
 
@@ -461,6 +528,8 @@ def _(radius, nsample, xyz, new_xyz, pre, cbias, w1, b1, w2, b2):
 
 
 fused_sa.launches = 0
+# the launches of its f32 form (sa_f32_kernel), counted in launches too
+fused_sa.f32_launches = 0
 
 
 def fused_sa_idx(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
@@ -508,6 +577,7 @@ def _fused_sa_idx_op(nsample: int, idx: torch.Tensor, pre: torch.Tensor,
             *map(_ptr, operands), _ptr(out), B, N, S, nsample, *dims,
             _stream(pre))
     fused_sa_idx.launches += 1
+    fused_sa_idx.f32_launches += int(pre.dtype == torch.float32)
     return out
 
 
@@ -517,6 +587,7 @@ def _(nsample, idx, pre, cbias, w1, b1, w2, b2):
 
 
 fused_sa_idx.launches = 0
+fused_sa_idx.f32_launches = 0
 
 
 # ------------------------------------------- gather backward (scatter-add)
@@ -1059,3 +1130,4 @@ KERNELS = (farthest_point_sample, query_ball_point, fused_sa, gather_backward,
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    fused_sa.f32_launches = fused_sa_idx.f32_launches = 0

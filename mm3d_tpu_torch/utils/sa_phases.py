@@ -49,8 +49,9 @@ def _clouds(r, B, N):
     return pts
 
 
-def cases(dev):
-    """(label, call) for both forms at SA1 and SA2, bf16, B=128."""
+def cases(dev, dtype=torch.bfloat16):
+    """(label, call) for both forms at SA1 and SA2, B=128, in ``dtype``
+    (bf16, the warp-specialised kernel; f32, the CUDA-core kernel)."""
     r = np.random.RandomState(0)
     xyz = torch.from_numpy(_clouds(r, 128, 1024)).to(dev)
     with dispatch.use_impl("torch"):
@@ -62,7 +63,7 @@ def cases(dev):
             SA_SHAPES, ((xyz, c1), (c1, c2))):
         B, N, _ = x.shape
         S = cents.shape[1]
-        w = [torch.from_numpy(a).to(dev).to(torch.bfloat16) for a in (
+        w = [torch.from_numpy(a).to(dev).to(dtype) for a in (
             g.randn(B, N, C1).astype(np.float32),
             g.randn(B, S, C1).astype(np.float32),
             (g.randn(C1, C2) * 0.3).astype(np.float32),
@@ -70,9 +71,10 @@ def cases(dev):
             (g.randn(C2, C3) * 0.3).astype(np.float32),
             g.randn(C3).astype(np.float32))]
         idx = ops.knn_point(K, x, cents)
-        out.append((f"fused_sa {label} bf16",
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        out.append((f"fused_sa {label} {name}",
                     lambda a=(radius, K, x, cents, *w): ops.fused_sa(*a)))
-        out.append((f"fused_sa_idx {label} bf16",
+        out.append((f"fused_sa_idx {label} {name}",
                     lambda a=(K, idx, *w): ops.fused_sa_idx(*a)))
     return out
 

@@ -1,19 +1,28 @@
 """The fused SA tail's time under each tile plan it can take, on the card.
 
     python -m mm3d_tpu_torch.utils.sa_plans [--out chiprun_out] [--src FILE]
-                                            [--tag NAME]
+                                            [--tag NAME] [--dtype bf16|f32]
+                                            [--plan NAME=VALUE ...]
 
-``cuda_kernels.sa_plan`` picks one plan a launch: tile rows, producer
-warpgroups (an A stage each), resident or streamed weights, the cloud's points
-in shared memory or not, or the loop kernel (producers 0). The launcher
-takes any plan whose bytes match the kernel's layout, so this tool times
-both forms at ``sa_phases``' shapes (SA1 and SA2, bf16, B=128) under every
-plan of the list below that fits the card's shared memory, the planner's
-own first; each row is the median of three timings of 20 calls (CUDA
-events). ``--src`` times a library built from another copy of the source
-(a variant of a compile-time choice) in place of the port's own; ``--tag``
-names the run in the output. Prints one JSON line a (case, plan) and
-writes ``sa_plans[-TAG].json`` to ``--out``. Needs a card.
+``cuda_kernels.sa_plan`` picks one plan a launch. bf16: tile rows, producer
+warpgroups (an A stage each), resident or streamed weights, the cloud's
+points in shared memory or not, or the loop kernel (producers 0). f32 (the
+CUDA-core kernel ``sa_f32_kernel``, two producer warpgroups): block rows,
+resident or streamed weights, one or two A stages, the points in shared
+memory or not. The
+launcher takes any plan whose bytes match the kernel's layout, so this tool
+times both forms at ``sa_phases``' shapes (SA1 and SA2, B=128) in each
+dtype asked for (both by default) under every plan of the lists below that
+fits the card's shared memory, the planner's own first; each row is the
+median of three timings of 20 calls (CUDA events). ``--src`` times a
+library built from another copy of the source (a variant of a compile-time
+choice, with the launch signature of this checkout) in place of the port's
+own; ``--plan NAME=VALUE`` (repeatable) sets an integer constant of
+``ops.cuda_kernels`` for the run, so that the plans' bytes follow such a
+copy's layout (``SA_F32_PANEL=16`` for a copy whose f32 weight panels are
+16 rows); ``--tag`` names the run in the output. Prints one JSON line a
+(case, plan) and writes ``sa_plans[-TAG].json`` to ``--out``. Needs a
+card.
 """
 
 from __future__ import annotations
@@ -29,33 +38,47 @@ from mm3d_tpu_torch.ops import _build
 from mm3d_tpu_torch.ops import cuda_kernels as ck
 from mm3d_tpu_torch.utils import sa_phases
 
-# (rows, producers, resident, points in shared memory); producers 0 is the
-# loop kernel
+# bf16: (rows, producers, resident, points in shared memory); producers 0
+# is the loop kernel
 PLANS = ((128, 3, True, True), (128, 3, True, False),
          (128, 2, True, True), (128, 2, True, False),
          (128, 1, True, True), (128, 1, True, False),
          (128, 1, False, True), (128, 1, False, False),
          (64, 2, True, False), (64, 1, True, False), (0, 0, False, False))
+# f32: (block rows, resident, A stages, points in shared memory)
+PLANS_F32 = tuple((rows, resident, stages, xyz)
+                  for rows in (128, 64) for resident in (True, False)
+                  for stages in (2, 1) for xyz in (True, False))
 
 
 class _Skip(Exception):
     """The form or the shared memory cannot take the plan."""
 
 
-def forced(rows, producers, resident, xyz):
+def forced(spec, dtype):
     """An sa_plan stand-in that returns this plan, or raises _Skip."""
-    def plan(C1, C2, C3, K, S, dtype, N=0):
-        if producers == 0:
-            St = max(1, min(S, 128 // K)) if K <= 128 else 1
-            p = ck.SaPlan(St * K, St, K, False, False, 0,
-                          ck._loop_smem(St, K, C1, C2, 2))
-        else:
-            KR = ck._up(K, 16)
-            if ((xyz or producers == 3) and N == 0) or rows < KR:
+    def plan(C1, C2, C3, K, S, dt, N=0):
+        KR = ck._up(K, 16)
+        if dtype == torch.float32:
+            rows, resident, stages, xyz = spec
+            if xyz and N == 0:
                 raise _Skip
-            p = ck.SaPlan(rows, rows // KR, KR, resident, xyz, producers,
-                          ck._ws_smem(C1, C2, C3, rows, resident,
-                                      N if xyz else 0, producers))
+            p = ck.SaPlan(rows, max(1, rows // KR), KR, resident, xyz, 2,
+                          stages, ck._f32_smem(C1, C2, C3, K, rows, resident,
+                                               N if xyz else 0, stages))
+        else:
+            rows, producers, resident, xyz = spec
+            if producers == 0:
+                St = max(1, min(S, 128 // K)) if K <= 128 else 1
+                p = ck.SaPlan(St * K, St, K, False, False, 0, 0,
+                              ck._loop_smem(St, K, C1, C2))
+            else:
+                if ((xyz or producers == 3) and N == 0) or rows < KR:
+                    raise _Skip
+                p = ck.SaPlan(rows, rows // KR, KR, resident, xyz, producers,
+                              producers,
+                              ck._ws_smem(C1, C2, C3, rows, resident,
+                                          N if xyz else 0, producers))
         if p.smem > ck.SMEM_LIMIT:
             raise _Skip
         return p
@@ -67,7 +90,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--src", default=None)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), action="append")
+    ap.add_argument("--plan", action="append", default=[],
+                    metavar="NAME=VALUE")
     args = ap.parse_args(argv)
+    for item in args.plan:
+        name, value = item.split("=")
+        if not isinstance(getattr(ck, name, None), int):
+            raise SystemExit(f"sa_plans: {name} is no integer constant of "
+                             "ops.cuda_kernels")
+        setattr(ck, name, int(value))
     if not torch.cuda.is_available():
         raise SystemExit("sa_plans: no CUDA device; this runs on the card")
     card = subprocess.run(
@@ -83,13 +115,17 @@ def main(argv=None) -> int:
     chosen = ck.sa_plan
     rows = []
     try:
-        for label, call in sa_phases.cases(dev):
-            for spec in (None,) + PLANS:
+        dtypes = [torch.bfloat16 if d == "bf16" else torch.float32
+                  for d in args.dtype or ("bf16", "f32")]
+        for dtype, (label, call) in ((d, c) for d in dtypes
+                                     for c in sa_phases.cases(dev, d)):
+            plans = PLANS_F32 if dtype == torch.float32 else PLANS
+            for spec in (None,) + plans:
                 taken = []
 
-                def plan(*a, spec=spec, taken=taken):
-                    taken.append((chosen if spec is None else forced(*spec))(
-                        *a))
+                def plan(*a, spec=spec, taken=taken, dtype=dtype):
+                    taken.append((chosen if spec is None
+                                  else forced(spec, dtype))(*a))
                     return taken[-1]
                 ck.sa_plan = plan
                 try:
@@ -108,7 +144,7 @@ def main(argv=None) -> int:
     name = f"sa_plans-{args.tag}.json" if args.tag else "sa_plans.json"
     with open(os.path.join(args.out, name), "w") as f:
         json.dump({"card": card, "src": args.src or "checkout",
-                   "rows": rows}, f, indent=1)
+                   "plan": args.plan, "rows": rows}, f, indent=1)
     return 0
 
 

@@ -28,8 +28,8 @@ adds the ``clock64()`` cycles of each phase to a device array):
   walks, and the cycles a warp spends staging the cloud and storing rows.
 
 It also times the ball-query form of the fused SA tail at SA1 and SA2 (bf16,
-the warp-specialised kernel, and f32, the loop kernel; ``sa_phases``'
-draws), whose selection is the same walk.
+the warp-specialised kernel, and f32, the CUDA-core kernel
+``sa_f32_kernel``; ``sa_phases``' draws), whose selection is the same walk.
 
 The 3-NN selection (``csrc/three_nn.cuh``): ``ops.three_nn`` at
 fusion_sem_seg's training shapes (B=24: FP2 256 <- 64, FP1 2048 <- 256
@@ -68,7 +68,8 @@ says which; its headers are found beside
 it first) beside the checkout's, in the same process, in the order
 checkout, copy, copy, checkout; each copy keeps the C interface, except
 that a three_nn or fused_fp copy from before the launch plan (no
-``*_threads``) is called without its lanes argument. So an earlier
+``*_threads``) is called without its lanes argument, and a fused_sa copy
+from before the ``stages`` launch argument cannot be raced. So an earlier
 commit's sources (``git archive <commit> mm3d_tpu_torch/csrc | tar -x -C
 build/old``) or an edited copy of a compile-time choice race the
 checkout's on one card. ``--plan NAME=VALUE`` (repeatable) times the
@@ -341,7 +342,7 @@ def cases(dev):
                     lambda a=(radius, K, x, cents): ops.query_ball_point(
                         *a)))
     # the fused SA's ball-query form, sa_phases' operands, bf16 (the
-    # warp-specialised kernel) and f32 (the loop kernel)
+    # warp-specialised kernel) and f32 (the CUDA-core kernel)
     g = np.random.RandomState(1)
     for (label, radius, K, (C1, C2, C3)), (x, cents) in zip(
             sa_phases.SA_SHAPES, ((xyz, c1), (c1, c2))):

@@ -1,15 +1,18 @@
-"""The fused SA tail's tile plan and kernel path, on the CPU, without JAX.
+"""The fused SA tail's tile plan and kernel path, on the CPU.
 
 ``cuda_kernels.sa_plan`` cuts each fused SA launch for the H100 kernels
-(``csrc/fused_sa.cu``): tile rows, centroids a tile, resident or streamed
-weights, producer warpgroups (0: the loop kernel) and the
-shared-memory bytes. It is checked here at every (C1, C2, C3, K) that the
-JAX models route to the fused tail in bf16 eval, and against the loop
-layout of the first design, which took every width whose tile fitted. The
+(``csrc/fused_sa.cu``): tile (bf16) or block (f32) rows, centroids a tile,
+resident or streamed weights, producer warpgroups (0: the bf16 loop
+kernel), A stages and the shared-memory bytes. It is checked here at every
+(C1, C2, C3, K) that the JAX models route to the fused tail, in bf16 and in
+f32 (the CUDA-core kernel, whose bytes are held to its layout written out
+here), and at every width the first design took, whose tile fitted. The
 wrappers' kernel path runs through ``fake_kernels`` (the plain twins in
-place of the launches). The twins themselves are held to the Pallas kernels
-in tests/test_torch_ops.py and tests/test_torch_knn.py; the kernels run
-only on the card, where chip_smoke.py holds them to the twins.
+place of the launches), also for a whole pointnet2_sem_seg forward on the
+f32 form, held to JAX's eval (the only test here that imports JAX, inside
+it). The twins themselves are held to the Pallas kernels in
+tests/test_torch_ops.py and tests/test_torch_knn.py; the kernels run only
+on the card, where chip_smoke.py holds them to the twins.
 """
 
 import numpy as np
@@ -49,9 +52,10 @@ def fake_kernels(monkeypatch):
             # a plan that fits the card's shared memory
             given = symbol == "mm3d_fused_sa_idx"
             pre, cbias, w1, b1, w2, b2, out = a[3 - given:10 - given]
-            K, smem = a[13 - given], a[22 - 2 * given]
+            K, smem = a[13 - given], a[23 - 2 * given]
             assert smem <= ck.SMEM_LIMIT
             launch.producers.append(a[21 - 2 * given])
+            launch.plans.append(a[17 - given:24 - 2 * given])
             idx = (a[1] if given else
                    tops.ball_query_torch(np.sqrt(a[-2]), K, a[1], a[2]))
             out.copy_(tops.fused_sa_idx_torch(K, idx, pre, cbias, w1, b1, w2,
@@ -81,6 +85,8 @@ def fake_kernels(monkeypatch):
             raise NotImplementedError(symbol)
 
     launch.producers = []  # each fused SA launch's plan: 0 the loop kernel
+    # each fused SA launch's plan arguments, St to smem (``_plan_args``)
+    launch.plans = []
     launch.weights = []  # each three_interp launch's weight operand
     monkeypatch.setattr(ck, "_launch", launch)
     ck.reset_launches()
@@ -233,13 +239,90 @@ def _first_design_smem(K, C1, C2, esize):
 WIDTHS = (8, 16, 24, 32, 64, 96, 128, 196, 256, 384, 512, 640)
 
 
+def _f32_layout_smem(C1, C2, C3, K, rows, resident, xyz_points, stages):
+    """Shared-memory bytes of the f32 kernel's block, written out here as
+    its layout (``F32Layout``): weights (resident, or two 32-row panels of
+    the wider chunk), A stages and H channel-major with rows + 4 floats a
+    channel, biases, two tiles' indices and cbias rows, two chunks' slab
+    maxima, the running row of a centroid walked in blocks, the points
+    (x, y, z, |p|^2; whole rounds of 128), mbarriers; each part 128-byte
+    aligned."""
+    def al(n):
+        return -(-n // 128) * 128
+
+    def up(x, m):
+        return -(-x // m) * m
+
+    nc1, nc2 = (32 if c <= 32 else 64 if c <= 64 else 128 for c in (C2, C3))
+    C1p, K2p, N1p, N2p = up(C1, 16), up(C2, 16), up(C2, nc1), up(C3, nc2)
+    KR = up(K, 16)
+    blocks = 1 if KR <= rows else -(-KR // rows)
+    St = rows // KR if blocks == 1 else 1
+    weights = (al(4 * C1p * N1p) + al(4 * K2p * N2p) if resident
+               else 2 * al(4 * 32 * max(nc1, nc2)))
+    return (weights + stages * al(4 * C1p * (rows + 4))
+            + al(4 * K2p * (rows + 4)) + al(4 * N1p) + al(4 * N2p)
+            + al(8 * blocks * rows) + al(8 * St * C1p)
+            + al(8 * (rows // 16) * nc2)
+            + (al(4 * N2p) if blocks > 1 else 0)
+            + al(16 * up(xyz_points, 128)) + 128)
+
+
+def _check_f32_plan(plan, C1, C2, C3, K, N):
+    """An f32 plan: the CUDA-core kernel (two producer warpgroups), blocks of
+    128 or 64 rows holding St whole centroids (or one centroid walked in
+    blocks), one or two A stages, the layout's bytes within the limit."""
+    KR = -(-K // 16) * 16
+    assert plan.producers == 2 and plan.stages in (1, 2)
+    assert plan.rows in (128, 64) and plan.KR == KR
+    assert plan.St == (plan.rows // KR if KR <= plan.rows else 1)
+    assert not plan.xyz_smem or N > 0
+    assert plan.smem == _f32_layout_smem(
+        C1, C2, C3, K, plan.rows, plan.resident,
+        N if plan.xyz_smem else 0, plan.stages)
+    assert plan.smem <= ck.SMEM_LIMIT == 232448
+
+
+@pytest.mark.parametrize("where", sorted(ROUTED))
+def test_f32_sa_plan_fits_every_routed_width(where):
+    """The f32 form (fp32 serving with the kernels forced, bf16 serving
+    under ``MM3D_BF16_DEBUG=sa_bn``) has a plan at every routed width, the
+    segmentation models' sa4 blocks included, in both forms and at the N
+    the block sees; weights stay resident at the classifiers' sa1."""
+    C1, C2, C3, K = ROUTED[where]
+    for N in sorted({1024, OWN_N.get(where, 1024), 0}):
+        _check_f32_plan(ck.sa_plan(C1, C2, C3, K, 512, torch.float32, N),
+                        C1, C2, C3, K, N)
+    if (C1, C2, C3, K) == (64, 64, 128, 32):
+        plan = ck.sa_plan(C1, C2, C3, K, 512, torch.float32, 1024)
+        assert (plan.rows, plan.resident, plan.stages, plan.xyz_smem) == (
+            128, True, 2, True)
+
+
+def _first_design_smem(K, C1, C2, esize):
+    """Shared-memory bytes of the first design's block (one per
+    St = 128 // K centroids, S = 512), written out here as that design's
+    Layout: idx | A | H | a 64-column f32 tile, rows padded to 16, widths
+    to 16 plus a 16-byte skew."""
+    St = max(1, min(512, 128 // K)) if K <= 128 else 1
+    R = St * K
+    Rp = -(-R // 16) * 16
+    return (-(-R * 4 // 128) * 128
+            + Rp * (-(-C1 // 16) * 16 + 16 // esize) * esize
+            + Rp * (-(-C2 // 16) * 16 + 16 // esize) * esize + Rp * 68 * 4)
+
+
+WIDTHS = (8, 16, 24, 32, 64, 96, 128, 196, 256, 384, 512, 640)
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("K", [1, 16, 20, 32, 48, 64, 96, 128, 129, 200,
                                256, 300, 512])
 def test_sa_plan_takes_what_the_first_design_took(K, dtype):
     """Every width the first design ran (its block within the limit) still
-    has a plan, in both forms: the wgmma kernel's where it fits, else the
-    loop kernel, whose bytes are the first design's."""
+    has a plan, in both forms: bf16, the wgmma kernel's where it fits, else
+    the loop kernel, whose bytes are the first design's; f32, the CUDA-core
+    kernel, whose bytes are its layout's."""
     dt = getattr(torch, dtype)
     taken = 0
     for C1 in WIDTHS:
@@ -250,9 +333,10 @@ def test_sa_plan_takes_what_the_first_design_took(K, dtype):
                 for N in (1024, 0):
                     plan = ck.sa_plan(C1, C2, C3, K, 512, dt, N)
                     assert plan.smem <= ck.SMEM_LIMIT
-                    if dt == torch.float32 or plan.producers == 0:
-                        assert plan.producers == 0 and plan.smem == (
-                            _first_design_smem(K, C1, C2, dt.itemsize))
+                    if dt == torch.float32:
+                        _check_f32_plan(plan, C1, C2, C3, K, N)
+                    elif plan.producers == 0:
+                        assert plan.smem == _first_design_smem(K, C1, C2, 2)
                     else:
                         assert plan.St * K <= plan.rows
                 taken += 1
@@ -261,25 +345,48 @@ def test_sa_plan_takes_what_the_first_design_took(K, dtype):
 
 @pytest.mark.parametrize("fits,widths", [
     (True, (128, 196, 256, 128)), (True, (16, 16, 32, 16)),
-    (False, (256, 256, 512, 32)), (False, (256, 384, 512, 32))])
+    (True, (256, 256, 512, 32)), (True, (256, 384, 512, 32)),
+    (False, (1024, 1024, 64, 32))])
 def test_f32_plan_and_refusal(monkeypatch, fits, widths):
-    """f32 keeps the first design's layout: the (128,196,256) and
-    (16,16,32) blocks fit; the sa4 blocks do not, and both wrappers refuse
-    them with a ValueError naming the limit, before any launch."""
+    """f32 at config 3's (128,196,256) and the sem-seg MSG sa1 (16,16,32),
+    and at the sa4 blocks, whose first-design tile did not fit: a plan
+    within the limit, and both wrappers launch once under it with the
+    twin's result. A width no plan holds ((1024,1024,64): one A stage of
+    64 rows alone is 278 KB) is refused by both wrappers with a ValueError
+    naming the limit, before any launch."""
     C1, C2, C3, K = widths
-    if fits:
-        assert ck.sa_plan(C1, C2, C3, K, 64, torch.float32).smem <= 232448
-        return
-    with pytest.raises(ValueError, match="232448"):
-        ck.sa_plan(C1, C2, C3, K, 64, torch.float32)
-    targs = _inputs(3, 1, 64, 4, C1, C2, C3, torch.float32)
-    idx = torch.zeros(1, 4, K, dtype=torch.int32)
+    targs = _inputs(3, 1, 256, 16, C1, C2, C3, torch.float32)
+    idx = tops.knn_point(K, targs[0], targs[1])
     k = fake_kernels(monkeypatch)
-    with pytest.raises(ValueError, match="232448"):
-        tops.fused_sa(0.8, K, *targs)
-    with pytest.raises(ValueError, match="232448"):
-        tops.fused_sa_idx(K, idx, *targs[2:])
-    assert k.fused_sa.launches == 0 and k.fused_sa_idx.launches == 0
+    if not fits:
+        with pytest.raises(ValueError, match="232448"):
+            ck.sa_plan(C1, C2, C3, K, 16, torch.float32)
+        with pytest.raises(ValueError, match="232448"):
+            tops.fused_sa(0.8, K, *targs)
+        with pytest.raises(ValueError, match="232448"):
+            tops.fused_sa_idx(K, idx, *targs[2:])
+        assert k.fused_sa.launches == 0 and k.fused_sa_idx.launches == 0
+        return
+    got = (tops.fused_sa(0.8, K, *targs),
+           tops.fused_sa_idx(K, idx, *targs[2:]))
+    assert k.fused_sa.launches == 1 and k.fused_sa_idx.launches == 1
+    assert k.fused_sa.f32_launches == 1 and k.fused_sa_idx.f32_launches == 1
+    for n, args in zip((256, 0), k._launch.plans):
+        plan = ck.sa_plan(C1, C2, C3, K, 16, torch.float32, n)
+        _check_f32_plan(plan, C1, C2, C3, K, n)
+        assert tuple(args) == _plan_args(plan, ball=n > 0)
+    want = (tops.fused_sa_torch(0.8, K, *targs),
+            tops.fused_sa_idx_torch(K, idx, *targs[2:]))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+def _plan_args(plan, ball):
+    """A plan's launch arguments: St, rows, resident, (the ball-query
+    form) xyz_smem, producers, stages, smem."""
+    return ((plan.St, plan.rows, int(plan.resident))
+            + ((int(plan.xyz_smem),) if ball else ())
+            + (plan.producers, plan.stages, plan.smem))
 
 
 @pytest.mark.parametrize("C1,C2,C3,K,radius,loop", [
@@ -300,6 +407,78 @@ def test_kernel_path_at_wide_widths(monkeypatch, C1, C2, C3, K, radius,
     got = (tops.fused_sa(radius, K, *targs),
            tops.fused_sa_idx(K, idx, *targs[2:]))
     assert k.fused_sa.launches == 1 and k.fused_sa_idx.launches == 1
+    assert k.fused_sa.f32_launches == 0 == k.fused_sa_idx.f32_launches
     assert [p == 0 for p in k._launch.producers] == [loop, loop]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------ a whole model, f32 form
+
+
+@pytest.mark.parametrize("mode", ["fp32-forced", "bf16-sa_bn"])
+def test_semseg_serves_through_the_f32_form(mode, monkeypatch):
+    """pointnet2_sem_seg served on the kernel path (``fake_kernels``) with
+    every SA block on the fused kernel's f32 form, sa4's (256,256,512)
+    included: fp32 with the kernels forced (``use_impl("cuda")``), and
+    bf16 under ``MM3D_BF16_DEBUG=sa_bn`` (set before the model is built),
+    where ``pre * A`` promotes to f32. Both raised a ValueError at sa4 while
+    the f32 form kept the first design's layout. Four fused SA launches a
+    forward, all f32 (flag 0), under f32 plans. fp32: within 1e-4 of the
+    port's plain path (unfused) and of JAX's eval (pure mode) on the same
+    weights. bf16: the port's plain path (the twins) within 1e-5, and JAX's
+    bf16 model under the same knob in its Pallas mode (interpret), whose
+    fused tail keys its form on pre's dtype too: argmax agreement 1.0 and
+    log-probs within 2^-4, the gates of ``test_torch_bf16_debug``."""
+    from test_torch_fusion_semseg import _apply, _init, _np_tree
+    import jax.numpy as jnp
+    from mm3d_tpu.models import get_model as jax_get_model
+    from mm3d_tpu_torch.models import get_model
+    from mm3d_tpu_torch.training import make_predictor
+    from mm3d_tpu_torch.utils import load_jax_variables
+
+    name, ncls = "pointnet2_sem_seg", 13
+    r = np.random.RandomState(21)
+    xyz = r.rand(2, 512, 3).astype(np.float32)
+    args = (np.concatenate([xyz, r.rand(2, 512, 3).astype(np.float32),
+                            xyz / xyz.max(1, keepdims=True)], -1),)
+    v = _init(jax_get_model(name).builder(num_class=ncls), args)
+    state = load_jax_variables(get_model(name).builder(num_class=ncls),
+                               _np_tree(v)).state_dict()
+    fp32 = mode == "fp32-forced"
+    if not fp32:
+        monkeypatch.setenv("MM3D_BF16_DEBUG", "sa_bn")
+    dtype = None if fp32 else torch.bfloat16
+    pred = make_predictor(name, state, dtype=dtype, device="cpu",
+                          num_class=ncls)
+    x = torch.from_numpy(args[0])
+    with dispatch.use_impl("torch"):
+        plain = pred(x)
+    k = fake_kernels(monkeypatch)
+    launch, flags = ck._launch, []
+
+    def record(symbol, *a):
+        flags.append((symbol, a[0]))
+        return launch(symbol, *a)
+
+    monkeypatch.setattr(ck, "_launch", record)
+    with dispatch.use_impl("cuda" if fp32 else "auto"):
+        got = pred(x)
+    assert k.fused_sa.launches == 4 == k.fused_sa.f32_launches
+    assert k.fused_fp.launches == 4
+    assert {f for s, f in flags if s == "mm3d_fused_sa"} == {0}
+    # f32 plans: two producer warpgroups, sa4's 64-row blocks
+    assert launch.producers == [2] * 4
+    assert [args[1] for args in launch.plans] == [128, 128, 128, 64]
+    got, plain = got.numpy(), plain.numpy()
+    if fp32:
+        want, _ = _apply(jax_get_model(name).builder(num_class=ncls), v,
+                         args, "jax")
+        assert np.abs(got - plain).max() <= 1e-4
+        assert np.abs(got - want).max() <= 1e-4
+        return
+    want, _ = _apply(jax_get_model(name).builder(
+        num_class=ncls, dtype=jnp.bfloat16), v, args, "pallas")
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+    assert (got.argmax(-1) == want.argmax(-1)).mean() == 1.0
+    assert np.abs(got - want).max() <= 2.0 ** -4
